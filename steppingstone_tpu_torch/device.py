@@ -1,0 +1,18 @@
+"""Device selection shared by every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the card. Raises when CUDA is asked for (explicitly or
+    by default) and no GPU is present: the port never falls back to the
+    CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU"
+        )
+    return dev

@@ -1,0 +1,48 @@
+"""Batched env API (port of steppingstone_tpu/envs/vector.py).
+
+The whole fleet is one `EnvState` with a leading env axis on one device;
+stepping N envs is one batched call into the env, whose physics is one
+launch of kernel K1 on the card. The fleet's randomness comes from a
+`torch.Generator` that the VecEnv owns, seeded at construction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from steppingstone_tpu_torch.device import resolve_device
+from steppingstone_tpu_torch.envs import terrain as terr
+from steppingstone_tpu_torch.envs.stepper import EnvState, EnvStepDraws, ResetDraws, StepperEnv
+
+
+class VecEnv:
+    def __init__(self, env: StepperEnv, num_envs: int, device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        if env.device != self.device:
+            raise ValueError(f"env lives on {env.device}, VecEnv asked for {self.device}")
+        self.env = env
+        self.num_envs = num_envs
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    @property
+    def observation_dim(self):
+        return self.env.observation_dim
+
+    @property
+    def action_dim(self):
+        return self.env.action_dim
+
+    def reset(self, cur: terr.CurriculumState | None = None, draws: ResetDraws | None = None):
+        if cur is None:
+            cur = terr.default_curriculum(batch=self.num_envs, device=self.device)
+        return self.env.reset(cur, generator=self.generator, draws=draws)
+
+    def step(self, state: EnvState, actions: torch.Tensor, draws: EnvStepDraws | None = None):
+        return self.env.step(state, actions, generator=self.generator, draws=draws)
+
+    def set_mirror(self, state: EnvState, enabled: bool) -> EnvState:
+        return self.env.set_mirror(state, enabled)
+
+    def update_curriculum(self, state: EnvState, level, assist=None) -> EnvState:
+        return self.env.update_curriculum(state, level, assist)

@@ -1,0 +1,5 @@
+from steppingstone_tpu_torch.physics.robots import walker3d as _walker3d_mod
+
+REGISTRY = {
+    "walker3d": _walker3d_mod.walker3d,
+}

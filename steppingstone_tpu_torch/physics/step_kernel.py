@@ -1,0 +1,298 @@
+"""Kernel K1, the fused 60 Hz control step on the card, and its wrapper.
+
+The kernel (csrc/control_step.cu, CUDA C++ for sm_90a) replaces the TPU
+kernel steppingstone_tpu/physics/pallas_step.py `build_batched_step` in its
+torque/disc specialization (pd=False, support_hy=None, no joint_rot). It is
+built with nvcc from the repo's source at first use into `build/` (listed
+in .gitignore) and bound with ctypes; each call builds nothing once the
+library for the current source exists.
+
+`control_step` is the only entry: CPU tensors run the plain PyTorch
+version `engine._step_scan`; CUDA tensors launch the kernel or raise —
+there is no fallback. `CONTROL_STEP.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from steppingstone_tpu_torch.physics import engine
+from steppingstone_tpu_torch.physics.contact import ContactParams
+from steppingstone_tpu_torch.physics.dynamics import GRAVITY, _ancestor_mask
+from steppingstone_tpu_torch.physics.model import RobotModel
+
+# compile-time maxima of csrc/control_step.cu
+MAXB, MAXC, MAXS = 32, 16, 32
+MAXJ = MAXB - 1
+MAXD = MAXJ + 6
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SOURCE = PACKAGE_DIR / "csrc" / "control_step.cu"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_f, _i = ctypes.c_float, ctypes.c_int
+
+
+class _ModelData(ctypes.Structure):
+    """Mirror of `struct ModelData` in csrc/control_step.cu."""
+
+    _fields_ = [
+        ("anc", ctypes.c_uint64 * MAXD),
+        ("nb", _i), ("nc", _i), ("substeps", _i), ("unused", _i),
+        ("parent", _i * MAXB),
+        ("cbody", _i * MAXC),
+        ("cfoot", _i * MAXC),
+        ("axis", (_f * 3) * MAXB),
+        ("anchor", (_f * 3) * MAXB),
+        ("com", (_f * 3) * MAXB),
+        ("inertia", (_f * 3) * MAXB),
+        ("mass", _f * MAXB),
+        ("jlo", _f * MAXJ), ("jhi", _f * MAXJ), ("jdamp", _f * MAXJ),
+        ("jstiff", _f * MAXJ), ("jref", _f * MAXJ),
+        ("coff", (_f * 3) * MAXC),
+        ("crad", _f * MAXC),
+        ("kn", _f), ("cn", _f), ("mu", _f), ("kt", _f), ("margin", _f),
+        ("dt", _f), ("limit_k", _f), ("limit_c", _f), ("max_qd", _f),
+        ("gravity", _f), ("reg", _f),
+    ]
+
+
+def check_model(model: RobotModel, n_stones: int) -> None:
+    """Raise if the kernel cannot take this model or stone count."""
+    if model.joint_rot is not None:
+        raise NotImplementedError(
+            "rotated joint frames need kernel K4 (pallas_step.py jrot), not ported yet"
+        )
+    if model.nbodies > MAXB or model.ncontacts > MAXC or n_stones > MAXS:
+        raise ValueError(
+            f"{model.name}: {model.nbodies} bodies, {model.ncontacts} contacts, "
+            f"{n_stones} stones exceed the kernel's maxima {MAXB}/{MAXC}/{MAXS}"
+        )
+
+
+def _model_data(model: RobotModel, cparams: ContactParams, substeps: int) -> _ModelData:
+    md = _ModelData()
+    nb, nj, nc = model.nbodies, model.njoints, model.ncontacts
+    mask = _ancestor_mask(model)
+    for k in range(model.ndof):
+        md.anc[k] = sum(1 << l for l in range(k + 1) if mask[k, l])
+    md.nb, md.nc, md.substeps = nb, nc, substeps
+    view = np.ctypeslib.as_array
+    view(md.parent)[:nb] = model.parent
+    view(md.cbody)[:nc] = model.contact_body
+    view(md.cfoot)[:nc] = model.foot_of_contact
+    view(md.axis)[:nb] = model.joint_axis
+    view(md.anchor)[:nb] = model.joint_anchor
+    view(md.com)[:nb] = model.com
+    view(md.inertia)[:nb] = model.inertia
+    view(md.mass)[:nb] = model.mass
+    view(md.jlo)[:nj] = model.joint_lower
+    view(md.jhi)[:nj] = model.joint_upper
+    view(md.jdamp)[:nj] = model.joint_damping
+    view(md.jstiff)[:nj] = model.joint_stiffness
+    view(md.jref)[:nj] = model.joint_spring_ref
+    view(md.coff)[:nc] = model.contact_offset
+    view(md.crad)[:nc] = model.contact_radius
+    md.kn, md.cn, md.mu, md.kt, md.margin = (float(x) for x in cparams)
+    md.dt, md.limit_k, md.limit_c = engine.SIM_DT, engine.LIMIT_K, engine.LIMIT_C
+    md.max_qd, md.gravity, md.reg = engine.MAX_QD, GRAVITY, engine.REG
+    return md
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernel K1")
+    return nvcc
+
+
+class ControlStepKernel:
+    """Builds, loads and launches K1; `launches` counts launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""  # ptxas's register / local-memory report of the last build
+        self._lib = None
+        self._models: dict = {}
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"libcontrol_step_{digest.hexdigest()[:16]}.so"
+
+    def build(self) -> float:
+        """Compile (unless the library for this source exists) and load.
+        Returns the seconds spent."""
+        t0 = time.perf_counter()
+        if self._lib is None:
+            path = self.library_path()
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                try:
+                    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                                          check=True, capture_output=True, text=True)
+                    self.build_log = done.stderr
+                    os.replace(tmp, path)  # atomic: concurrent builds agree
+                except subprocess.CalledProcessError as err:
+                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{err.stderr}") from err
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+            lib = ctypes.CDLL(str(path))
+            lib.control_step_model_size.restype = ctypes.c_int
+            lib.control_step_model_size.argtypes = []
+            lib.control_step_launch.restype = ctypes.c_int
+            lib.control_step_launch.argtypes = (
+                [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 10
+            )
+            size = lib.control_step_model_size()
+            if size != ctypes.sizeof(_ModelData):
+                raise RuntimeError(
+                    f"ModelData layout mismatch: kernel {size} B, binding "
+                    f"{ctypes.sizeof(_ModelData)} B"
+                )
+            self._lib = lib
+        return time.perf_counter() - t0
+
+    def launch(self, model, q_t, qd_t, tau_t, stones_t, stone_radius, use_ground,
+               cparams: ContactParams, substeps: int):
+        """K1 on CUDA tensors in its struct-of-arrays layout, env index
+        fastest: q_t (nq, B), qd_t (ndof, B), tau_t (NJ, B), stones_t
+        (6 S, B), stone_radius (B,), use_ground (B,) as float32 0/1.
+        Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers
+        check inputs (`control_step` does)."""
+        self.build()
+        key = (model, cparams, substeps)
+        md = self._models.get(key)
+        if md is None:
+            md = self._models[key] = _model_data(model, cparams, substeps)
+        B, S = q_t.shape[1], stones_t.shape[0] // 6
+        outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
+                for n in (model.nq, model.ndof, model.njoints + 7)]
+        ins = (q_t, qd_t, tau_t, stones_t, stone_radius, use_ground)
+        with torch.cuda.device(q_t.device):
+            stream = torch.cuda.current_stream(q_t.device).cuda_stream
+            err = self._lib.control_step_launch(
+                ctypes.byref(md), B, S, *(t.data_ptr() for t in ins + tuple(outs)), stream
+            )
+        if err != 0:
+            raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return outs
+
+
+def to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground):
+    """(B, k) inputs -> the kernel's (k, B) layout (pallas_step.py pack)."""
+    B = q.shape[0]
+    return (q.t().contiguous(), qd.t().contiguous(), tau.t().contiguous(),
+            stones.reshape(B, -1).t().contiguous(), stone_radius,
+            use_ground.to(torch.float32))
+
+
+CONTROL_STEP = ControlStepKernel()
+
+
+def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_ground):
+    B = q.shape[0] if q.dim() == 2 else -1
+    expect = {
+        "q": (q, (B, model.nq), torch.float32),
+        "qd": (qd, (B, model.ndof), torch.float32),
+        "tau": (tau, (B, model.njoints), torch.float32),
+        "stones": (stones, (B, stones.shape[1] if stones.dim() == 3 else -1, 6),
+                   torch.float32),
+        "stone_radius": (stone_radius, (B,), torch.float32),
+        "use_ground": (use_ground, (B,), torch.bool),
+    }
+    for name, (t, shape, dtype) in expect.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape or B <= 0:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, q on {q.device}")
+
+
+def control_step(
+    model: RobotModel,
+    q: torch.Tensor,             # (B, nq) float32
+    qd: torch.Tensor,            # (B, ndof) float32
+    tau: torch.Tensor,           # (B, NJ) float32 joint torques
+    stones: torch.Tensor,        # (B, S, 6) float32
+    stone_radius: torch.Tensor,  # (B,) float32
+    use_ground: torch.Tensor,    # (B,) bool
+    cparams: ContactParams = ContactParams(),
+    substeps: int = engine.SUBSTEPS,
+):
+    """One control step for B envs -> (q', qd', engine.StepInfo). CPU
+    tensors run the plain version; CUDA tensors run K1."""
+    _check_inputs(model, q, qd, tau, stones, stone_radius, use_ground)
+    check_model(model, stones.shape[1])
+    if q.device.type == "cpu":
+        st, info = engine._step_scan(model, engine.PhysicsState(q, qd), tau, stones,
+                                     stone_radius, use_ground, cparams, substeps)
+        return st.q, st.qd, info
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q_t, qd_t, info = CONTROL_STEP.launch(
+        model, *to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground),
+        cparams, substeps)
+    nj = model.njoints
+    return q_t.t().contiguous(), qd_t.t().contiguous(), engine.StepInfo(
+        foot_contact=(info[0:2] > 0.0).t(),
+        foot_stone=info[2:4].t().to(torch.long),
+        foot_normal_force=info[4:6].t(),
+        joint_at_limit=(info[6:6 + nj] > 0.5).t(),
+        contact_force_sum=info[6 + nj].clone(),
+    )
+
+
+def control_step_bytes(model: RobotModel, n_stones: int) -> int:
+    """Bytes K1 must move per env: every input read once, every output
+    written once (f32)."""
+    inputs = model.nq + model.ndof + model.njoints + 6 * n_stones + 2
+    outputs = model.nq + model.ndof + model.njoints + 7
+    return 4 * (inputs + outputs)
+
+
+def control_step_flops(model: RobotModel, n_stones: int, substeps: int) -> int:
+    """fp32 operations one env's control step needs, counted section by
+    section from csrc/control_step.cu: each add, multiply, divide,
+    min/max, sqrt, rsqrt and sin/cos counts one (an FMA counts two). The
+    Cholesky factor and solves are counted at the ancestor sparsity of the
+    mass matrix (no fill-in for a tree), the work the function needs; the
+    kernel's dense loops do more."""
+    nb, nj, nd, nc, S = model.nbodies, model.njoints, model.ndof, model.ncontacts, n_stones
+    mask = _ancestor_mask(model)
+    pairs = int(mask.sum())                      # nonzeros of the lower triangle
+    fk = nj * 67 + nb * 96                       # joint frames; R, CoM, world inertia
+    vel = nj * 54                                # motion axes, body velocities
+    contact = nc * (33 + 24 * S + 2 + 53)        # per sphere: pose, S stone tests, force
+    joints = nj * 22                             # limit, passive, implicit diagonals
+    crba = nb * 32 + nj * 10 + nd * 42 + pairs * 12
+    rnea = nj * 42 + nb * 126 + nj * 6 + nd * 12
+    chol = 0
+    for j in range(nd):
+        col = [i for i in range(j, nd) if mask[i, j]]
+        chol += 2 + len(col)                      # pivot, scale the column
+        for k in col[1:]:
+            chol += 2 * sum(1 for i in col if i >= k)
+    solves = 2 * (2 * (pairs - nd) + nd)
+    euler = 3 * nd + 40 + 2 * nc
+    per_substep = fk + vel + contact + joints + crba + rnea + nd * 5 + chol + solves + euler
+    return substeps * per_substep + 7 * S

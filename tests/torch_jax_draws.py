@@ -1,0 +1,107 @@
+"""Shared helpers for the tests that hold steppingstone_tpu_torch against
+steppingstone_tpu: the JAX package's random draws, recomputed from its
+keys by the same splits its env code makes, and handed to the port as
+numpy-built tensors (the two frameworks' generators cannot agree)."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from steppingstone_tpu_torch.envs import terrain as tterr
+from steppingstone_tpu_torch.envs.stepper import EnvStepDraws, ResetDraws, env_state_from_numpy
+
+
+def _stone_draw(key, prob):
+    """The draws of terrain.sample_step_params(key, cur) for one placement."""
+    ku, kg, kr, kt = jax.random.split(key, 4)
+    return dict(
+        u=jax.random.uniform(ku, (4,), minval=-1.0, maxval=1.0),
+        r_u=jax.random.uniform(kr, ()),
+        cat=jax.random.categorical(kg, jnp.log(prob.reshape(-1) + 1e-12)),
+        r_g=jax.random.uniform(kt, ()),
+    )
+
+
+def _reset_draw(key, prob, n_stones, n_noise):
+    """The draws of StepperEnv.reset(key, ...) for one env."""
+    k_terr, k_noise, _, k_mir = jax.random.split(key, 4)
+    keys = jax.random.split(k_terr, n_stones - 2)
+    stones = jax.vmap(_stone_draw, in_axes=(0, None))(keys, prob)
+    return dict(stones=stones, noise=jax.random.normal(k_noise, (n_noise,)),
+                mirror=jax.random.bernoulli(k_mir))
+
+
+def _step_draw(key, prob, n_stones, n_noise):
+    """The draws of StepperEnv.step for one env whose state key is `key`,
+    plus the key the env carries to the next step either way."""
+    k_resample, k_next = jax.random.split(key)
+    k_reset, k_keep = jax.random.split(k_next)
+    resample = jax.tree.map(lambda x: x[None], _stone_draw(k_resample, prob))
+    k_state = jax.random.split(k_reset, 4)[2]
+    return dict(resample=resample, reset=_reset_draw(k_reset, prob, n_stones, n_noise),
+                k_keep=k_keep, k_state=k_state)
+
+
+_reset_draws = jax.jit(jax.vmap(_reset_draw, in_axes=(0, 0, None, None)), static_argnums=(2, 3))
+_step_draws = jax.jit(jax.vmap(_step_draw, in_axes=(0, 0, None, None)), static_argnums=(2, 3))
+
+
+def _stones(d, device) -> tterr.StoneDraws:
+    return tterr.StoneDraws(
+        u=torch.as_tensor(np.array(d["u"]), device=device),
+        r_u=torch.as_tensor(np.array(d["r_u"]), device=device),
+        cat=torch.as_tensor(np.array(d["cat"]), dtype=torch.long, device=device),
+        r_g=torch.as_tensor(np.array(d["r_g"]), device=device),
+    )
+
+
+def _reset(d, device) -> ResetDraws:
+    return ResetDraws(
+        stones=_stones(d["stones"], device),
+        noise=torch.as_tensor(np.array(d["noise"]), device=device),
+        mirror=torch.as_tensor(np.array(d["mirror"]), device=device),
+    )
+
+
+def reset_draws(keys, prob, n_stones, n_noise, device="cpu") -> ResetDraws:
+    """Port draws equal to those of vmap(env.reset) over `keys` (B, 2)."""
+    return _reset(_reset_draws(keys, prob, n_stones, n_noise), device)
+
+
+def step_draws(keys, prob, n_stones, n_noise, device="cpu"):
+    """(EnvStepDraws, k_keep, k_state) for a batch of env keys: the port
+    draws of one vmap(env.step), and the next key of an env that goes on
+    (k_keep) or was reset (k_state)."""
+    d = _step_draws(keys, prob, n_stones, n_noise)
+    draws = EnvStepDraws(resample=_stones(d["resample"], device), reset=_reset(d["reset"], device))
+    return draws, d["k_keep"], d["k_state"]
+
+
+def vec_reset_keys(key, n):
+    """The per-env keys VecEnv.reset(key) hands to env.reset."""
+    return jax.random.split(key, n)
+
+
+def to_port_state(jax_state, device="cpu"):
+    """A JAX EnvState (any leaves) -> the port's EnvState."""
+    return env_state_from_numpy(jax.tree.map(np.asarray, jax_state), device)
+
+
+def assert_states_close(port, ref, q_tol=(2e-4, 2e-4), qd_tol=(2e-3, 2e-2)):
+    """Port EnvState against a JAX EnvState. Discrete fields must be equal;
+    q/qd use the kernel parity tolerances of tests/test_pallas_step.py
+    (fp32 sums taken in another order, through four substeps of stiff
+    contact); derived distances get 1e-3."""
+    r = jax.tree.map(np.asarray, ref)
+    np.testing.assert_allclose(port.phys.q.numpy(), r.phys.q, rtol=q_tol[0], atol=q_tol[1])
+    np.testing.assert_allclose(port.phys.qd.numpy(), r.phys.qd, rtol=qd_tol[0], atol=qd_tol[1])
+    np.testing.assert_allclose(port.terrain.numpy(), r.terrain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(port.foot_xyz.numpy(), r.foot_xyz, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(port.prev_dist.numpy(), r.prev_dist, rtol=1e-3, atol=1e-3)
+    for f in ("next_step_index", "elapsed", "last_hit", "update_terrain", "foot_contact",
+              "mirror_enabled", "mirror_episode"):
+        np.testing.assert_array_equal(getattr(port, f).numpy(), getattr(r, f), err_msg=f)
+
