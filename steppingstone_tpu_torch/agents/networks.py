@@ -4,7 +4,8 @@
   torch-default (fan-in uniform) init
 - critic: obs -> 256 x4 -> 1, relu, orthogonal(sqrt 2) weights, zero bias;
   an ensemble `c0..cN` whose mean is the value
-- a state-independent diagonal Gaussian with a learned logstd, init -1.5
+- a state-independent diagonal Gaussian with a learned logstd, init -1.5;
+  the helpers below clamp, project, cap, raise or reset it in place
 
 `params_from_jax` turns the JAX package's flax parameter tree (as numpy)
 into a state_dict of `ActorCritic`.
@@ -99,6 +100,38 @@ def clamped_logstd(policy: ActorCritic) -> torch.Tensor:
     straight through (so a parameter below the floor can still recover)."""
     raw = policy.logstd
     return raw + (torch.clamp(raw, min=LOGSTD_MIN) - raw).detach()
+
+
+@torch.no_grad()
+def project_logstd(policy: ActorCritic) -> ActorCritic:
+    """Clip the raw logstd parameter to >= LOGSTD_MIN in place (after each
+    optimizer step, so it cannot sink arbitrarily far while clamped)."""
+    policy.logstd.clamp_(min=LOGSTD_MIN)
+    return policy
+
+
+@torch.no_grad()
+def reinflate_logstd(policy: ActorCritic, value: float) -> ActorCritic:
+    """Raise exploration noise to at least `value` per dim (curriculum
+    level advances)."""
+    policy.logstd.clamp_(min=value)
+    return policy
+
+
+@torch.no_grad()
+def cap_logstd(policy: ActorCritic, value: float) -> ActorCritic:
+    """Cap exploration noise at `value` per dim (the late-run
+    deterministic-gait anneal; keep the cap above LOGSTD_MIN)."""
+    policy.logstd.clamp_(max=value)
+    return policy
+
+
+@torch.no_grad()
+def reset_logstd(policy: ActorCritic, value: float = -2.5) -> ActorCritic:
+    """Set every logstd to `value` (the reference's warm-start
+    `reset_dist`)."""
+    policy.logstd.fill_(value)
+    return policy
 
 
 def params_from_jax(flax_params: Mapping) -> dict:

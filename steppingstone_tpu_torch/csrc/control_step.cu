@@ -1,14 +1,26 @@
-// Kernel K1: one 60 Hz control step of the articulated-body physics, for a
-// batch of independent envs, on NVIDIA Hopper (sm_90a).
+// Kernels K1, K2, K3 and K2+K3: one 60 Hz control step of the articulated-
+// body physics, for a batch of independent envs, on NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel steppingstone_tpu/physics/pallas_step.py
-// (`build_batched_step(pd=False, support_hy=None)`, the pallas_call at
-// pallas_step.py:733) for models without rotated joint frames. It computes
-// the same function as the plain PyTorch version `engine._step_scan` of this
-// package and follows that version's order of operations: stones are tested
-// in order and the ground last, with the first maximum winning; each foot
-// reports its strongest contact; the Cholesky factor uses
-// rsqrtf(fmaxf(d, 1e-12f)) on its diagonal.
+// (`build_batched_step`, the pallas_call at pallas_step.py:733) for models
+// without rotated joint frames, in four compile-time specializations of one
+// body, `control_step_kernel<PD, PLANK>`:
+//   K1    <false, false>  torque actuation, disc support
+//   K2    <false, true>   plank support (`support_hy`, pallas_step.py:420-431,
+//                         648-657): each stone's in-plane axes
+//                         ux = normalize(h - (h.n) n), uy = n x ux once per
+//                         control step, and the box bound |x_l| <= r + margin,
+//                         |y_l| <= hy + margin in place of the disc bound
+//   K3    <true, false>   stable PD (`pd=True`, pallas_step.py:474-488):
+//                         every substep tau_pd = clip(kp (target - q) - kd qd,
+//                         +-limit) * power on joints with kp or kd nonzero,
+//                         and power kd, power kp on the implicit D, K diagonals
+//   K2+K3 <true, true>    both (Cassie on planks)
+// It computes the same function as the plain PyTorch version
+// `engine._step_scan` of this package and follows that version's order of
+// operations: stones are tested in order and the ground last, with the
+// first maximum winning; each foot reports its strongest contact; the
+// Cholesky factor uses rsqrtf(fmaxf(d, 1e-12f)) on its diagonal.
 //
 // Layout: one thread per env, blocks of 128 threads, a tail guard so any
 // batch size works. Global arrays are struct-of-arrays with the env index
@@ -17,10 +29,10 @@
 // The substep loop runs inside the kernel, so the state never leaves the
 // thread between substeps.
 //
-// What bounds it: per env and control step the kernel moves 1,124 bytes
-// but does ~10^5 fp32 operations (CRBA, RNEA, a 27-dof Cholesky, 12 x 20
-// sphere-stone tests, four times), so the floor is the fp32 rate, not
-// memory. This first version keeps the model as runtime data in a
+// What bounds it: per env and control step the kernel moves ~1 KB but
+// does ~10^5 fp32 operations (CRBA, RNEA, a 20-27-dof Cholesky, spheres x
+// 20 stone tests, four times), so the floor is the fp32 rate, not memory.
+// This first version keeps the model as runtime data in a
 // __grid_constant__ struct (uniform loads served by the constant cache)
 // and the per-env scratch (body frames, packed mass matrix) in local
 // memory; with one thread per env, 4096 envs fill only ~1 warp per SM
@@ -51,6 +63,7 @@ struct ModelData {
   float inertia[MAXB][3];
   float mass[MAXB];
   float jlo[MAXJ], jhi[MAXJ], jdamp[MAXJ], jstiff[MAXJ], jref[MAXJ];
+  float kp[MAXJ], kd[MAXJ], tlim[MAXJ];  // stable-PD gains, 0 where not actuated
   float coff[MAXC][3];
   float crad[MAXC];
   float kn, cn, mu, kt, margin;
@@ -100,10 +113,14 @@ __device__ __forceinline__ void inertia_mul(float m, const float* c, const float
   o[5] = hl[2];
 }
 
+// PD: stable-PD actuation toward target_in (NJ, B) scaled by power_in (B,);
+// PLANK: box support with lateral bound hy_margin (= support_hy + margin).
+template <bool PD, bool PLANK>
 __global__ void __launch_bounds__(128)
-control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
+control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_margin,
                     const float* __restrict__ q_in, const float* __restrict__ qd_in,
-                    const float* __restrict__ tau_in, const float* __restrict__ st_in,
+                    const float* __restrict__ tau_in, const float* __restrict__ target_in,
+                    const float* __restrict__ power_in, const float* __restrict__ st_in,
                     const float* __restrict__ sr_in, const float* __restrict__ ug_in,
                     float* __restrict__ q_out, float* __restrict__ qd_out,
                     float* __restrict__ info_out) {
@@ -116,9 +133,17 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
   for (int k = 0; k < NQ; ++k) q[k] = q_in[k * B + e];
   for (int k = 0; k < ND; ++k) qd[k] = qd_in[k * B + e];
   for (int j = 0; j < NJ; ++j) tau_j[j] = tau_in[j * B + e];
+  float target[PD ? MAXJ : 1];
+  float power = 0.0f;
+  if constexpr (PD) {
+    for (int j = 0; j < NJ; ++j) target[j] = target_in[j * B + e];
+    power = power_in[e];
+  }
 
-  // stone centers and top normals, once per control step
+  // stone centers and top normals (and for planks the in-plane axes of the
+  // top, contact.support_axes), once per control step
   float sc[MAXS][3], sn[MAXS][3];
+  float su[PLANK ? MAXS : 1][3], sv[PLANK ? MAXS : 1][3];
   for (int s = 0; s < S; ++s) {
     for (int a = 0; a < 3; ++a) sc[s][a] = st_in[(s * 6 + a) * B + e];
     const float xt = st_in[(s * 6 + 4) * B + e], yt = st_in[(s * 6 + 5) * B + e];
@@ -126,6 +151,16 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
     sn[s][0] = sinf(yt) * cx;
     sn[s][1] = -sinf(xt);
     sn[s][2] = cy * cx;
+    if constexpr (PLANK) {
+      const float ph = st_in[(s * 6 + 3) * B + e];
+      const float h[3] = {cosf(ph), sinf(ph), 0.0f};
+      const float hn = dot3(h, sn[s]);
+      float ux[3];
+      for (int a = 0; a < 3; ++a) ux[a] = h[a] - hn * sn[s][a];
+      const float un = sqrtf(dot3(ux, ux) + 1e-12f);
+      for (int a = 0; a < 3; ++a) su[s][a] = ux[a] / un;
+      cross3(sn[s], su[s], sv[s]);
+    }
   }
   const float rim = sr_in[e] + m.margin;
   const bool use_ground = ug_in[e] != 0.0f;
@@ -217,7 +252,12 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
         const float dn = dot3(rel, sn[s]);
         for (int a = 0; a < 3; ++a) lat[a] = rel[a] - dn * sn[s][a];
         const float pen = rad - dn;
-        const bool ok = (sqrtf(dot3(lat, lat)) <= rim) && (pen > 0.0f) && (dn > -rad);
+        bool on_top;
+        if constexpr (PLANK)
+          on_top = (fabsf(dot3(lat, su[s])) <= rim) && (fabsf(dot3(lat, sv[s])) <= hy_margin);
+        else
+          on_top = sqrtf(dot3(lat, lat)) <= rim;
+        const bool ok = on_top && (pen > 0.0f) && (dn > -rad);
         if (ok && pen > best) { best = pen; bi = s; }
       }
       const float gpen = rad - pt[2];
@@ -255,9 +295,23 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
       const float out = (below < 0.0f || above > 0.0f) ? 1.0f : 0.0f;
       const float tau_lim = -m.limit_k * (below + above) - m.limit_c * qdj * out;
       const float passive = -m.jdamp[j] * qdj - m.jstiff[j] * (qj - m.jref[j]);
-      rhs[6 + j] = tau_j[j] + passive + tau_lim;  // tau_full; C is subtracted below
-      damp_eff[j] = m.jdamp[j] + m.limit_c * out;
-      stiff_eff[j] = m.jstiff[j] + m.limit_k * out;
+      float act = tau_j[j];
+      float damp = m.jdamp[j] + m.limit_c * out;
+      float stiff = m.jstiff[j] + m.limit_k * out;
+      if constexpr (PD) {
+        if (m.kp[j] != 0.0f || m.kd[j] != 0.0f) {
+          // stable PD: explicit torque from the current substep state, the
+          // gains on the implicit diagonals
+          const float tpd = fminf(fmaxf(m.kp[j] * (target[j] - qj) - m.kd[j] * qdj, -m.tlim[j]),
+                                  m.tlim[j]);
+          act = act + power * tpd;
+          damp = damp + power * m.kd[j];
+          stiff = stiff + power * m.kp[j];
+        }
+      }
+      rhs[6 + j] = act + passive + tau_lim;  // tau_full; C is subtracted below
+      damp_eff[j] = damp;
+      stiff_eff[j] = stiff;
       at_limit[j] = out;
     }
 
@@ -410,22 +464,44 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S,
   info_out[(6 + NJ) * B + e] = fsum;
 }
 
+template <bool PD, bool PLANK>
+static void launch(const ModelData* model, int B, int S, float hy_margin, const float* q,
+                   const float* qd, const float* tau, const float* target, const float* power,
+                   const float* stones, const float* stone_radius, const float* use_ground,
+                   float* q_out, float* qd_out, float* info_out, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  control_step_kernel<PD, PLANK><<<blocks, threads, 0, stream>>>(
+      *model, B, S, hy_margin, q, qd, tau, target, power, stones, stone_radius, use_ground,
+      q_out, qd_out, info_out);
+}
+
 extern "C" {
 
 // sizeof(ModelData), so the binding can check that its mirror matches
 int control_step_model_size(void) { return (int)sizeof(ModelData); }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
-int control_step_launch(const ModelData* model, int B, int S,
-                        const float* q, const float* qd, const float* tau,
-                        const float* stones, const float* stone_radius,
-                        const float* use_ground, float* q_out, float* qd_out,
-                        float* info_out, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  control_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      *model, B, S, q, qd, tau, stones, stone_radius, use_ground, q_out, qd_out,
-      info_out);
+// Launch the (pd, plank) variant on `stream`; target and power are read
+// only when pd != 0, hy_margin only when plank != 0. Returns
+// cudaGetLastError() (0 = launched).
+int control_step_launch(const ModelData* model, int B, int S, int pd, int plank,
+                        float hy_margin, const float* q, const float* qd, const float* tau,
+                        const float* target, const float* power, const float* stones,
+                        const float* stone_radius, const float* use_ground, float* q_out,
+                        float* qd_out, float* info_out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pd && plank)
+    launch<true, true>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
+                       stone_radius, use_ground, q_out, qd_out, info_out, st);
+  else if (pd)
+    launch<true, false>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
+                        stone_radius, use_ground, q_out, qd_out, info_out, st);
+  else if (plank)
+    launch<false, true>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
+                        stone_radius, use_ground, q_out, qd_out, info_out, st);
+  else
+    launch<false, false>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
+                         stone_radius, use_ground, q_out, qd_out, info_out, st);
   return (int)cudaGetLastError();
 }
 

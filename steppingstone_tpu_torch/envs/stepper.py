@@ -1,18 +1,27 @@
-"""Stepping-stone environment, Walker3D torque/disc path (port of
-steppingstone_tpu/envs/stepper.py).
+"""Stepping-stone environments, Walker3D (torque) and Cassie (stable PD)
+(port of steppingstone_tpu/envs/stepper.py).
 
-- obs 60 / action 21: [height above the lowest foot, heading-frame
-  velocity (3), roll, pitch] + 21 limit-normalized joint angles + 21 joint
-  speeds * 0.1 + 2 foot contacts + 2 lookahead stones x (sin(a) d,
-  cos(a) d, dz, x_tilt, y_tilt)
+- Walker3D obs 60 / action 21: [height above the lowest foot,
+  heading-frame velocity (3), roll, pitch] + 21 limit-normalized joint
+  angles + 21 joint speeds * 0.1 + 2 foot contacts + 2 lookahead stones x
+  (sin(a) d, cos(a) d, dz, x_tilt, y_tilt)
+- Cassie obs 51 / action 10: [height, sin/cos of the bearing to the next
+  stone] + heading-frame velocity (3) + roll, pitch + body rates (3) + 14
+  joint angles + 14 joint speeds * 0.1 + 2 foot contacts + the gait clock
+  (sin, cos) + 2 lookahead stones x (sin(a) d, cos(a) d, dz, x_tilt); the
+  action sets PD targets held over the control step, and stable PD runs
+  inside each substep
+- support: shrinking discs, pillars, or planks (`plank_class` Plank /
+  LargePlank, a box of half-width `plank_hy` across the walking direction)
 - reward = progress potential + step bonus 50 exp(-d / 0.25) + target
   bonus + tall bonus (+2/-1) - electricity, stall-torque, joint-limit and
   posture penalties
 - an episode ends on a fall (height below termination, non-finite state),
   a stall (no new stone hit for `stall_timeout` steps away from the goal)
   or the time limit; `step` resets ended envs itself
-- unclocked mirror: with mirroring enabled, alternate episodes (drawn at
-  reset) observe and act in mirrored coordinates
+- mirror: with mirroring enabled, unclocked envs (Walker3D) observe and act
+  in mirrored coordinates in alternate episodes (drawn at reset), clocked
+  envs (Cassie) in the second half of every gait cycle
 
 Batched over envs: every `EnvState` field has a leading axis B. Reset and
 step take their random draws as `ResetDraws` / `EnvStepDraws`, made from a
@@ -36,6 +45,7 @@ from steppingstone_tpu_torch.physics import kinematics as km
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.engine import PhysicsState
 from steppingstone_tpu_torch.physics.model import RobotModel, tensor
+from steppingstone_tpu_torch.physics.robots import cassie as cassie_mod
 from steppingstone_tpu_torch.physics.robots import walker3d as walker_mod
 
 CONTROL_DT = engine.SIM_DT * engine.SUBSTEPS  # 60 Hz
@@ -52,10 +62,11 @@ class EnvState(NamedTuple):
     update_terrain: torch.Tensor   # (B,) bool
     foot_contact: torch.Tensor     # (B, 2) bool from the last control step
     foot_xyz: torch.Tensor         # (B, 2, 3) foot link origins (world)
+    phase: torch.Tensor            # (B,) gait clock in [0, 1) (clocked envs)
     last_hit: torch.Tensor         # (B,) long elapsed at the last stone hit
     mirror_enabled: torch.Tensor   # (B,) bool
     mirror_episode: torch.Tensor   # (B,) bool: this episode runs mirrored
-    robot_power: torch.Tensor      # (B,) torque scale
+    robot_power: torch.Tensor      # (B,) torque scale (PD: scales torque and gains)
     stone_radius: torch.Tensor     # (B,) disc radius
 
 
@@ -87,7 +98,7 @@ class StepperConfig:
 
     name: str
     model: RobotModel
-    actuation: str              # "torque" ("pd" needs kernel K3)
+    actuation: str              # "torque" | "pd"
     obs_dim: int
     n_stones: int = 20
     stone_radius: float = 0.25
@@ -102,12 +113,14 @@ class StepperConfig:
     electricity_cost: float = 4.5
     stall_torque_cost: float = 0.225
     joints_at_limit_cost: float = 0.1
+    clock_period: int = 0       # control steps per gait cycle (0 = no clock obs)
     contact: ContactParams = ContactParams()
     reset_noise: float = 0.05
     init_forward_speed: float = 1.2
     # "disc": contact radius stone_radius + radius_extra at assist level 0,
     # shrinking to stone_radius at level 5; "pillar": stone_radius always;
-    # "plank" needs kernel K2
+    # "plank": a box of that half-length along the stone's heading and
+    # plank_hy across it
     support: str = "disc"
     plank_hy: float = 1.5
     radius_extra: float = 0.35
@@ -140,15 +153,16 @@ def observe(cfg: StepperConfig, state: EnvState) -> torch.Tensor:
 
 
 def observe_with_terrain(cfg: StepperConfig, state: EnvState, terrain: torch.Tensor) -> torch.Tensor:
-    """(B, 60) Walker-layout observation, optionally for another terrain."""
+    """(B, obs_dim) observation, optionally for another terrain: the
+    Walker layout (60), or the clocked Cassie layout (51)."""
     q, qd = state.phys.q, state.phys.qd
     root_pos, quat, qj = q[:, 0:3], q[:, 3:7], q[:, 7:]
     vel = qd[:, 3:6]
     yaw, pitch, roll = qt.to_euler_zyx(quat)
     ch, sh = torch.cos(yaw), torch.sin(yaw)
     height = root_pos[:, 2] - state.foot_xyz[:, :, 2].min(dim=1).values
-    head = torch.stack([height, ch * vel[:, 0] + sh * vel[:, 1],
-                        -sh * vel[:, 0] + ch * vel[:, 1], vel[:, 2], roll, pitch], dim=1)
+    v_head = torch.stack([ch * vel[:, 0] + sh * vel[:, 1],
+                          -sh * vel[:, 0] + ch * vel[:, 1], vel[:, 2]], dim=1)
 
     steps = torch.arange(cfg.lookahead, device=q.device)
     rows = _rows(terrain, torch.clamp(state.next_step_index[:, None] + steps, 0, cfg.n_stones - 1))
@@ -157,14 +171,31 @@ def observe_with_terrain(cfg: StepperConfig, state: EnvState, terrain: torch.Ten
     d = torch.sqrt(deltas[..., 0] * deltas[..., 0] + deltas[..., 1] * deltas[..., 1] + 1e-12)
     tgt = torch.stack([torch.sin(a) * d, torch.cos(a) * d, deltas[..., 2],
                        rows[..., 4], rows[..., 5]], dim=-1)
-    obs = torch.cat([head, _norm_angles(cfg.model, qj), qd[:, 6:] * 0.1,
-                     state.foot_contact.to(q.dtype), tgt.reshape(q.shape[0], -1)], dim=1)
+    B = q.shape[0]
+    if cfg.clock_period:
+        # bearing to the next stone, body rates and the gait clock
+        bearing = torch.atan2(deltas[:, 0, 1], deltas[:, 0, 0]) - yaw
+        ang = 2 * torch.pi * state.phase
+        obs = torch.cat([
+            torch.stack([height, torch.sin(bearing), torch.cos(bearing)], dim=1),
+            v_head, torch.stack([roll, pitch], dim=1), qt.rotate_inv(quat, qd[:, 0:3]),
+            qj, qd[:, 6:] * 0.1, state.foot_contact.to(q.dtype),
+            torch.stack([torch.sin(ang), torch.cos(ang)], dim=1),
+            tgt[..., :4].reshape(B, -1)], dim=1)
+    else:
+        obs = torch.cat([height[:, None], v_head, torch.stack([roll, pitch], dim=1),
+                         _norm_angles(cfg.model, qj), qd[:, 6:] * 0.1,
+                         state.foot_contact.to(q.dtype), tgt.reshape(B, -1)], dim=1)
     if obs.shape[1] != cfg.obs_dim:
         raise ValueError(f"obs dim {obs.shape[1]} != {cfg.obs_dim}")
     return obs
 
 
-def _mirror_active(state: EnvState) -> torch.Tensor:
+def _mirror_active(cfg: StepperConfig, state: EnvState) -> torch.Tensor:
+    """Clocked envs mirror in the second half of the gait cycle; unclocked
+    envs in the episodes drawn at reset."""
+    if cfg.clock_period:
+        return state.mirror_enabled & (state.phase >= 0.5)
     return state.mirror_enabled & state.mirror_episode
 
 
@@ -194,7 +225,7 @@ def env_state_from_numpy(src, device="cpu") -> EnvState:
     """Build an EnvState from numpy arrays: `src` is a (nested) mapping or
     object with the EnvState field names, e.g. a JAX EnvState whose leaves
     were converted with np.asarray. Fields the port does not keep (the
-    JAX random key, the Cassie gait phase) are ignored."""
+    JAX random key) are ignored."""
 
     def get(obj, name):
         return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
@@ -223,18 +254,20 @@ class StepperEnv:
     """Static config plus batched reset/step on one device."""
 
     def __init__(self, cfg: StepperConfig, device=None):
-        if cfg.actuation != "torque":
-            raise NotImplementedError("PD actuation needs kernel K3, not ported yet")
+        if cfg.actuation not in ("torque", "pd"):
+            raise ValueError(f"unknown actuation {cfg.actuation!r}")
         if cfg.support not in ("disc", "pillar", "plank"):
             raise ValueError(f"unknown support mode {cfg.support!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         model = cfg.model
-        # initial pose: the model's pose plus the mocca "running_start" offsets
+        # initial pose: the model's pose, for torque robots plus the mocca
+        # "running_start" offsets
         base = engine.default_state(model).q[0]
         off = np.zeros(model.njoints, dtype=np.float32)
-        for jn, v in walker_mod.RUNNING_START.items():
-            off[list(model.joint_names).index(jn)] = v
+        if cfg.actuation == "torque":
+            for jn, v in walker_mod.RUNNING_START.items():
+                off[list(model.joint_names).index(jn)] = v
         self._q0j = (base[7:] + torch.as_tensor(off)).to(self.device)
         self._quat0 = base[3:7].to(self.device)
         kin = km.forward_kinematics(model, base[None])
@@ -319,6 +352,7 @@ class StepperEnv:
             update_terrain=torch.zeros((B,), dtype=torch.bool, device=dev),
             foot_contact=torch.zeros((B, 2), dtype=torch.bool, device=dev),
             foot_xyz=_foot_xyz(model, q),
+            phase=zeros,
             last_hit=izeros,
             mirror_enabled=mirror_enabled,
             mirror_episode=draws.mirror,
@@ -327,7 +361,7 @@ class StepperEnv:
         )
         state = state._replace(prev_dist=self._target_dist(state))
         obs = observe(cfg, state)
-        obs = torch.where(_mirror_active(state)[:, None], self._mirror_obs(obs), obs)
+        obs = torch.where(_mirror_active(cfg, state)[:, None], self._mirror_obs(obs), obs)
         return state, obs
 
     def _walk_target(self, terrain, ns):
@@ -345,8 +379,8 @@ class StepperEnv:
         last = cfg.n_stones - 1
         if draws is None:
             draws = self.draw_step(state.cur, generator)
-        # the policy acts in mirrored coordinates in mirrored episodes
-        action = torch.where(_mirror_active(state)[:, None], self._mirror_act(action), action)
+        # the policy acts in mirrored coordinates while mirroring is active
+        action = torch.where(_mirror_active(cfg, state)[:, None], self._mirror_act(action), action)
         r_eff, hy = state.stone_radius, None
         if cfg.support != "pillar":
             # shrinking support assist, keyed on cur.assist
@@ -354,9 +388,18 @@ class StepperEnv:
                 1.0 - terr.level_scale(state.cur.assist))
         if cfg.support == "plank":
             hy = cfg.plank_hy
-        tau = engine.torque_actuation(model, action) * state.robot_power[:, None]
-        phys, info = engine.step(model, state.phys, tau, state.terrain, r_eff,
-                                 False, cfg.contact, support_hy=hy)
+        if cfg.actuation == "pd":
+            # stable PD: the target is held over the control step, the
+            # torque re-evaluated every substep with kp and kd implicit
+            phys, info = engine.step(
+                model, state.phys, torch.zeros(model.njoints, device=self.device),
+                state.terrain, r_eff, False, cfg.contact,
+                pd_target=engine.pd_target_from_action(model, action),
+                pd_power=state.robot_power, support_hy=hy)
+        else:
+            tau = engine.torque_actuation(model, action) * state.robot_power[:, None]
+            phys, info = engine.step(model, state.phys, tau, state.terrain, r_eff,
+                                     False, cfg.contact, support_hy=hy)
         foot_xyz = _foot_xyz(model, phys.q)
 
         # ---- step-hit detection & terrain resampling -------------------------
@@ -370,8 +413,11 @@ class StepperEnv:
             terr.resample_stone(state.terrain, ns_new + 1, state.cur, draws.resample),
             state.terrain,
         )
+        phase = state.phase
+        if cfg.clock_period > 0:
+            phase = (phase + 1.0 / cfg.clock_period) % 1.0
         mid = state._replace(phys=phys, terrain=terrain, next_step_index=ns_new,
-                             foot_contact=info.foot_contact, foot_xyz=foot_xyz)
+                             foot_contact=info.foot_contact, foot_xyz=foot_xyz, phase=phase)
 
         # ---- reward --------------------------------------------------------
         # progress toward the OLD walk target, then re-anchor the potential
@@ -433,7 +479,8 @@ class StepperEnv:
         out_state = out_state._replace(robot_power=mid.robot_power,
                                        stone_radius=mid.stone_radius)
         cont_obs = observe(cfg, mid)
-        cont_obs = torch.where(_mirror_active(mid)[:, None], self._mirror_obs(cont_obs), cont_obs)
+        cont_obs = torch.where(_mirror_active(cfg, mid)[:, None], self._mirror_obs(cont_obs),
+                               cont_obs)
         obs = torch.where(done[:, None], reset_obs, cont_obs)
         return out_state, StepOut(
             obs=obs,
@@ -459,31 +506,71 @@ class StepperEnv:
         return state._replace(cur=cur)
 
     def get_mirror_indices(self):
-        """(neg_obs, right_obs, left_obs, neg_act, right_act, left_act) for
-        the Walker layout."""
+        """(neg_obs, right_obs, left_obs, neg_act, right_act, left_act): the
+        Walker layout, or for clocked envs the Cassie layout."""
         cfg = self.cfg
         nj = cfg.model.njoints
-        mir = walker_mod.MIRROR
-        jpos = lambda j: 6 + j
-        jvel = lambda j: 6 + nj + j
-        contact0 = 6 + 2 * nj
-        tgt0 = contact0 + 2
-        neg_obs = [2, 4]  # vy, roll
+        if cfg.clock_period:
+            # 3 header + 3 v + 2 roll/pitch + 3 w, then angles, speeds,
+            # contacts, clock, and (sin*d, cos*d, dz, x_tilt) per stone
+            mir, amir = cassie_mod.MIRROR, cassie_mod.MIRROR_ACTION
+            base = 11
+            contact0 = base + 2 * nj
+            tgt0, width = contact0 + 4, 4
+            neg_obs = [1, 4, 6, 8, 10]  # sin(bearing), vy, roll, wx, wz
+            neg_act, right_act, left_act = (amir["neg_actions"], amir["right_actions"],
+                                            amir["left_actions"])
+        else:
+            mir = walker_mod.MIRROR
+            base = 6
+            contact0 = base + 2 * nj
+            tgt0, width = contact0 + 2, 5
+            neg_obs = [2, 4]  # vy, roll
+            neg_act, right_act, left_act = (mir["neg_joints"], mir["right_joints"],
+                                            mir["left_joints"])
+        jpos = lambda j: base + j
+        jvel = lambda j: base + nj + j
         neg_obs += [jpos(j) for j in mir["neg_joints"]]
         neg_obs += [jvel(j) for j in mir["neg_joints"]]
-        neg_obs += [tgt0 + 5 * k for k in range(cfg.lookahead)]       # sin*d
-        neg_obs += [tgt0 + 5 * k + 3 for k in range(cfg.lookahead)]   # x_tilt
+        neg_obs += [tgt0 + width * k for k in range(cfg.lookahead)]       # sin*d
+        neg_obs += [tgt0 + width * k + 3 for k in range(cfg.lookahead)]   # x_tilt
         right_obs = ([jpos(j) for j in mir["right_joints"]]
                      + [jvel(j) for j in mir["right_joints"]] + [contact0])
         left_obs = ([jpos(j) for j in mir["left_joints"]]
                     + [jvel(j) for j in mir["left_joints"]] + [contact0 + 1])
         return (np.array(neg_obs), np.array(right_obs), np.array(left_obs),
-                np.array(mir["neg_joints"]), np.array(mir["right_joints"]),
-                np.array(mir["left_joints"]))
+                np.array(neg_act), np.array(right_act), np.array(left_act))
+
+
+# The reference selects support geometry with a `plank_class` env kwarg
+# (mocca bullet_objects class names); the names map onto support modes
+# (half-extents as in the JAX package, reports/CALIBRATION.md).
+PLANK_CLASSES = {
+    "Pillar": dict(support="pillar"),
+    "Plank": dict(support="plank", plank_hy=0.6),
+    "LargePlank": dict(support="plank", plank_hy=1.5),
+}
+
+
+def _overrides(kw: dict) -> dict:
+    kw = dict(kw)
+    plank_class = kw.pop("plank_class", None)
+    if plank_class is not None:
+        kw.update(PLANK_CLASSES[plank_class])
+    return kw
 
 
 def walker3d_stepper(device=None, **kw) -> StepperEnv:
-    """Walker3DStepperEnv-v0; kw are StepperConfig overrides."""
+    """Walker3DStepperEnv-v0; kw are StepperConfig overrides or `plank_class`."""
     cfg = StepperConfig(name="Walker3DStepperEnv-v0", model=walker_mod.walker3d(),
-                        actuation="torque", obs_dim=60, **kw)
+                        actuation="torque", obs_dim=60, **_overrides(kw))
+    return StepperEnv(cfg, device)
+
+
+def cassie_stepper(device=None, **kw) -> StepperEnv:
+    """CassieStepper-v1: stable-PD actuation, 30-step gait clock; kw are
+    StepperConfig overrides or `plank_class`."""
+    cfg = StepperConfig(name="CassieStepper-v1", model=cassie_mod.cassie(), actuation="pd",
+                        obs_dim=51, termination_height=0.5, clock_period=30,
+                        init_forward_speed=0.8, **_overrides(kw))
     return StepperEnv(cfg, device)

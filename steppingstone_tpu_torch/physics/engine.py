@@ -2,9 +2,11 @@
 (port of steppingstone_tpu/physics/engine.py).
 
 One 60 Hz control step = SUBSTEPS x 240 Hz substeps. `_step_scan` is the
-plain batched PyTorch version; `step` is the entry point, which runs the
-hand-written CUDA kernel K1 for CUDA tensors and `_step_scan` for CPU
-tensors (physics/step_kernel.py).
+plain batched PyTorch version, with optional stable-PD actuation (`pd`) and
+plank support (`support_hy`); `step` is the entry point, which runs the
+hand-written CUDA kernel for CUDA tensors (K1 torque/disc, K2 plank, K3
+stable PD, or K2+K3) and `_step_scan` for CPU tensors
+(physics/step_kernel.py).
 """
 
 from __future__ import annotations
@@ -68,7 +70,29 @@ def torque_actuation(model: RobotModel, action: torch.Tensor) -> torch.Tensor:
     return tau
 
 
-def _substep(model, state, tau_j, stones, stone_radius, use_ground, cparams):
+def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tensor:
+    """PD target angles from a policy action (B, A) in [-1, 1]: the middle of
+    each actuated joint's range plus action x its half-range; returns the
+    full (B, NJ) joint vector (non-actuated entries 0, their gains are 0)."""
+    idx = tensor(model, "actuated_idx", action.device, torch.long)
+    lo = tensor(model, "joint_lower", action.device)[idx]
+    hi = tensor(model, "joint_upper", action.device)[idx]
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    target = action.new_zeros((action.shape[0], model.njoints))
+    target[:, idx] = mid + torch.clamp(action, -1.0, 1.0) * half
+    return target
+
+
+def pd_gains(model: RobotModel, device):
+    """(kp, kd, torque limit) per joint, zero on joints the policy does not
+    drive: the stable-PD gains of `_substep` and kernel K3."""
+    act = tensor(model, "actuated", device).to(torch.float32)
+    return (tensor(model, "kp", device) * act, tensor(model, "kd", device) * act,
+            tensor(model, "torque_limit", device) * act)
+
+
+def _substep(model, state, tau_j, stones, stone_radius, use_ground, cparams,
+             pd=None, support_hy=None):
     q, qd = state.q, state.qd
     dev = q.device
     kin = kin_mod.forward_kinematics(model, q)
@@ -78,7 +102,7 @@ def _substep(model, state, tau_j, stones, stone_radius, use_ground, cparams):
     pts = kin_mod.contact_points(model, kin)
     pvel = kin_mod.contact_point_velocities(model, kin, vel, pts)
     cout = ct.compute_contacts(pts, pvel, tensor(model, "contact_radius", dev),
-                               stones, stone_radius, use_ground, cparams)
+                               stones, stone_radius, use_ground, cparams, support_hy)
     f_ext = ct.contact_forces_to_bodies(
         model.nbodies, tensor(model, "contact_body", dev, torch.long), pts, root,
         cout.force,
@@ -86,12 +110,23 @@ def _substep(model, state, tau_j, stones, stone_radius, use_ground, cparams):
 
     qj, qdj = q[:, 7:], qd[:, 6:]
     tau_lim, at_limit = joint_limit_torque(model, qj, qdj)
+    pd_kp = pd_kd = 0.0
+    if pd is not None:
+        # stable PD: the explicit torque from the current substep state,
+        # kp and kd on the implicit diagonals (holding one PD torque over
+        # the four substeps rings Cassie's light links)
+        target, power = pd
+        kp_j, kd_j, lim_j = pd_gains(model, dev)
+        tau_pd = torch.clamp(kp_j * (target - qj) - kd_j * qdj, -lim_j, lim_j)
+        tau_j = tau_j + power[:, None] * tau_pd
+        pd_kp, pd_kd = power[:, None] * kp_j, power[:, None] * kd_j
     zeros6 = q.new_zeros((q.shape[0], 6))
     tau_full = torch.cat([zeros6, tau_j + passive_torque(model, qj, qdj) + tau_lim], dim=1)
-    # implicit per-joint spring-dampers: joint damping + limit dampers on
-    # the D diagonal, passive springs + active limit springs on K
-    damp_j = tensor(model, "joint_damping", dev) + LIMIT_C * at_limit
-    stiff_j = tensor(model, "joint_stiffness", dev) + LIMIT_K * at_limit
+    # implicit per-joint spring-dampers: joint damping + limit dampers (+ PD
+    # kd) on the D diagonal, passive springs + active limit springs (+ PD
+    # kp) on K
+    damp_j = tensor(model, "joint_damping", dev) + LIMIT_C * at_limit + pd_kd
+    stiff_j = tensor(model, "joint_stiffness", dev) + LIMIT_K * at_limit + pd_kp
     qdd = dyn.forward_dynamics(
         model, kin, vel, tau_full, f_ext, reg=REG,
         damping_diag=torch.cat([zeros6, damp_j], dim=1),
@@ -140,10 +175,13 @@ def _step_scan(
     use_ground: torch.Tensor,    # (B,) bool
     cparams: ct.ContactParams = ct.ContactParams(),
     substeps: int = SUBSTEPS,
+    pd=None,                     # None, or (target (B, NJ), power (B,)): stable PD
+    support_hy=None,             # None: disc support; a float: plank half-width
 ):
     """One control step = `substeps` dynamics substeps: the plain PyTorch
-    version of kernel K1. Contact flags/forces are OR/max-aggregated over
-    substeps so brief touchdowns are not missed."""
+    version of kernels K1 (torque, disc), K2 (plank), K3 (stable PD) and
+    K2+K3. Contact flags/forces are OR/max-aggregated over substeps so
+    brief touchdowns are not missed."""
     B = state.q.shape[0]
     acc = StepInfo(
         foot_contact=torch.zeros((B, 2), dtype=torch.bool, device=state.q.device),
@@ -155,7 +193,7 @@ def _step_scan(
     )
     for _ in range(substeps):
         state, info = _substep(model, state, tau_j, stones, stone_radius,
-                               use_ground, cparams)
+                               use_ground, cparams, pd, support_hy)
         acc = StepInfo(
             foot_contact=acc.foot_contact | info.foot_contact,
             foot_stone=torch.where(info.foot_stone >= 0, info.foot_stone, acc.foot_stone),
@@ -179,28 +217,17 @@ def step(
     pd_power=None,
     support_hy=None,
 ):
-    """One 60 Hz control step for a batch of envs. CUDA tensors run kernel
-    K1 (csrc/control_step.cu); CPU tensors run `_step_scan`. A scalar
-    stone_radius / use_ground is broadcast over the batch."""
-    if pd_target is not None or pd_power is not None:
-        raise NotImplementedError(
-            "stable-PD actuation needs kernel K3 (pallas_step.py pd=True), "
-            "not ported yet"
-        )
-    if support_hy is not None:
-        raise NotImplementedError(
-            "plank support needs kernel K2 (pallas_step.py support_hy), "
-            "not ported yet"
-        )
+    """One 60 Hz control step for a batch of envs. CUDA tensors run the
+    kernel (csrc/control_step.cu) in its specialization: K1 torque/disc,
+    K2 with `support_hy` (plank), K3 with `pd_target` (stable PD toward the
+    target, torques scaled by `pd_power`, default 1), K2+K3 with both; CPU
+    tensors run `_step_scan`. Unbatched tau_j (NJ,), pd_target (NJ,),
+    stone_radius, use_ground and pd_power are broadcast over the batch."""
     from steppingstone_tpu_torch.physics import step_kernel  # it imports this module
 
-    B, dev = state.q.shape[0], state.q.device
-    stone_radius = torch.as_tensor(stone_radius, dtype=torch.float32, device=dev)
-    use_ground = torch.as_tensor(use_ground, dtype=torch.bool, device=dev)
     q, qd, info = step_kernel.control_step(
-        model, state.q, state.qd, tau_j, stones,
-        stone_radius.expand(B).contiguous(), use_ground.expand(B).contiguous(),
-        cparams, substeps,
+        model, state.q, state.qd, tau_j, stones, stone_radius, use_ground,
+        cparams, substeps, target=pd_target, power=pd_power, support_hy=support_hy,
     )
     return PhysicsState(q, qd), info
 

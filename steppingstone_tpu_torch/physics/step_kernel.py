@@ -1,15 +1,24 @@
-"""Kernel K1, the fused 60 Hz control step on the card, and its wrapper.
+"""Kernels K1, K2, K3 and K2+K3, the fused 60 Hz control step on the card,
+and their wrapper.
 
 The kernel (csrc/control_step.cu, CUDA C++ for sm_90a) replaces the TPU
 kernel steppingstone_tpu/physics/pallas_step.py `build_batched_step` in its
-torque/disc specialization (pd=False, support_hy=None, no joint_rot). It is
-built with nvcc from the repo's source at first use into `build/` (listed
-in .gitignore) and bound with ctypes; each call builds nothing once the
-library for the current source exists.
+specializations without rotated joint frames, as compile-time variants of
+one body:
+
+- K1: torque actuation, disc support (pd=False, support_hy=None);
+- K2: plank support (support_hy=<float>);
+- K3: stable PD (pd=True, a per-joint target and a per-env power);
+- K2+K3: both (Cassie on planks).
+
+It is built with nvcc from the repo's source at first use into `build/`
+(listed in .gitignore) and bound with ctypes; each call builds nothing once
+the library for the current source exists.
 
 `control_step` is the only entry: CPU tensors run the plain PyTorch
 version `engine._step_scan`; CUDA tensors launch the kernel or raise —
-there is no fallback. `CONTROL_STEP.launches` counts kernel launches.
+there is no fallback. `CONTROL_STEP.launches[variant]` counts launches of
+each variant.
 """
 
 from __future__ import annotations
@@ -41,6 +50,13 @@ SOURCE = PACKAGE_DIR / "csrc" / "control_step.cu"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# (pd, plank) of each variant, as in the kernel's template arguments
+VARIANTS = {"K1": (False, False), "K2": (False, True), "K3": (True, False),
+            "K2+K3": (True, True)}
+
+
+def variant(pd: bool, plank: bool) -> str:
+    return {v: k for k, v in VARIANTS.items()}[(bool(pd), bool(plank))]
 
 _f, _i = ctypes.c_float, ctypes.c_int
 
@@ -61,6 +77,7 @@ class _ModelData(ctypes.Structure):
         ("mass", _f * MAXB),
         ("jlo", _f * MAXJ), ("jhi", _f * MAXJ), ("jdamp", _f * MAXJ),
         ("jstiff", _f * MAXJ), ("jref", _f * MAXJ),
+        ("kp", _f * MAXJ), ("kd", _f * MAXJ), ("tlim", _f * MAXJ),
         ("coff", (_f * 3) * MAXC),
         ("crad", _f * MAXC),
         ("kn", _f), ("cn", _f), ("mu", _f), ("kt", _f), ("margin", _f),
@@ -103,6 +120,8 @@ def _model_data(model: RobotModel, cparams: ContactParams, substeps: int) -> _Mo
     view(md.jdamp)[:nj] = model.joint_damping
     view(md.jstiff)[:nj] = model.joint_stiffness
     view(md.jref)[:nj] = model.joint_spring_ref
+    for field, gains in zip(("kp", "kd", "tlim"), engine.pd_gains(model, "cpu")):
+        view(getattr(md, field))[:nj] = gains.numpy()
     view(md.coff)[:nc] = model.contact_offset
     view(md.crad)[:nc] = model.contact_radius
     md.kn, md.cn, md.mu, md.kt, md.margin = (float(x) for x in cparams)
@@ -114,15 +133,16 @@ def _model_data(model: RobotModel, cparams: ContactParams, substeps: int) -> _Mo
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernel K1")
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the control-step kernels")
     return nvcc
 
 
 class ControlStepKernel:
-    """Builds, loads and launches K1; `launches` counts launches."""
+    """Builds, loads and launches the control-step kernels; `launches`
+    counts the launches of each variant (K1, K2, K3, K2+K3)."""
 
     def __init__(self):
-        self.launches = 0
+        self.reset_counts()
         self.build_log = ""  # ptxas's register / local-memory report of the last build
         self._lib = None
         self._models: dict = {}
@@ -156,8 +176,9 @@ class ControlStepKernel:
             lib.control_step_model_size.argtypes = []
             lib.control_step_launch.restype = ctypes.c_int
             lib.control_step_launch.argtypes = (
-                [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * 10
+                [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_float]
+                + [ctypes.c_void_p] * 12
             )
             size = lib.control_step_model_size()
             if size != ctypes.sizeof(_ModelData):
@@ -168,30 +189,41 @@ class ControlStepKernel:
             self._lib = lib
         return time.perf_counter() - t0
 
+    def reset_counts(self) -> None:
+        self.launches = dict.fromkeys(VARIANTS, 0)
+
     def launch(self, model, q_t, qd_t, tau_t, stones_t, stone_radius, use_ground,
-               cparams: ContactParams, substeps: int):
-        """K1 on CUDA tensors in its struct-of-arrays layout, env index
-        fastest: q_t (nq, B), qd_t (ndof, B), tau_t (NJ, B), stones_t
-        (6 S, B), stone_radius (B,), use_ground (B,) as float32 0/1.
-        Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers
-        check inputs (`control_step` does)."""
+               cparams: ContactParams, substeps: int, target_t=None, power=None,
+               support_hy=None):
+        """One launch on CUDA tensors in the kernel's struct-of-arrays
+        layout, env index fastest: q_t (nq, B), qd_t (ndof, B), tau_t
+        (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
+        float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
+        for planks `support_hy` (a float). Returns new (nq, B), (ndof, B)
+        and (NJ + 7, B) tensors. Callers check inputs (`control_step`
+        does)."""
         self.build()
         key = (model, cparams, substeps)
         md = self._models.get(key)
         if md is None:
             md = self._models[key] = _model_data(model, cparams, substeps)
+        pd, plank = target_t is not None, support_hy is not None
         B, S = q_t.shape[1], stones_t.shape[0] // 6
         outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
                 for n in (model.nq, model.ndof, model.njoints + 7)]
-        ins = (q_t, qd_t, tau_t, stones_t, stone_radius, use_ground)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        ins = (q_t, qd_t, tau_t, target_t, power, stones_t, stone_radius, use_ground)
+        # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
+        # plain version compares against the same sum
+        hy_margin = float(support_hy) + cparams.margin if plank else 0.0
         with torch.cuda.device(q_t.device):
             stream = torch.cuda.current_stream(q_t.device).cuda_stream
             err = self._lib.control_step_launch(
-                ctypes.byref(md), B, S, *(t.data_ptr() for t in ins + tuple(outs)), stream
-            )
+                ctypes.byref(md), B, S, int(pd), int(plank), hy_margin,
+                *(ptr(t) for t in ins + tuple(outs)), stream)
         if err != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        self.launches[variant(pd, plank)] += 1
         return outs
 
 
@@ -206,7 +238,8 @@ def to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground):
 CONTROL_STEP = ControlStepKernel()
 
 
-def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_ground):
+def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_ground,
+                  target=None, power=None):
     B = q.shape[0] if q.dim() == 2 else -1
     expect = {
         "q": (q, (B, model.nq), torch.float32),
@@ -217,6 +250,9 @@ def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_groun
         "stone_radius": (stone_radius, (B,), torch.float32),
         "use_ground": (use_ground, (B,), torch.bool),
     }
+    if target is not None:
+        expect["target"] = (target, (B, model.njoints), torch.float32)
+        expect["power"] = (power, (B,), torch.float32)
     for name, (t, shape, dtype) in expect.items():
         if t.dtype != dtype:
             raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
@@ -228,30 +264,55 @@ def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_groun
             raise ValueError(f"{name}: on {t.device}, q on {q.device}")
 
 
+def _batched(x, B: int, unbatched_dim: int, dtype, device):
+    """x as a tensor; an operand with `unbatched_dim` dims (one env's, or a
+    scalar) is repeated over the batch, as engine.py's vmap rule does."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(x, dtype=dtype, device=device)
+    if x.dim() == unbatched_dim:
+        x = x.expand((B,) + tuple(x.shape)).contiguous()
+    return x
+
+
 def control_step(
     model: RobotModel,
     q: torch.Tensor,             # (B, nq) float32
     qd: torch.Tensor,            # (B, ndof) float32
-    tau: torch.Tensor,           # (B, NJ) float32 joint torques
-    stones: torch.Tensor,        # (B, S, 6) float32
-    stone_radius: torch.Tensor,  # (B,) float32
-    use_ground: torch.Tensor,    # (B,) bool
+    tau: torch.Tensor,           # (B, NJ) or (NJ,) float32 joint torques
+    stones: torch.Tensor,        # (B, S, 6) or (S, 6) float32
+    stone_radius,                # (B,) float32 or a scalar
+    use_ground,                  # (B,) bool or a scalar
     cparams: ContactParams = ContactParams(),
     substeps: int = engine.SUBSTEPS,
+    target=None,                 # stable PD: (B, NJ) or (NJ,) float32 joint targets
+    power=None,                  # stable PD: (B,) float32 or a scalar torque scale
+    support_hy=None,             # plank support: lateral half-extent (a float)
 ):
     """One control step for B envs -> (q', qd', engine.StepInfo). CPU
-    tensors run the plain version; CUDA tensors run K1."""
-    _check_inputs(model, q, qd, tau, stones, stone_radius, use_ground)
+    tensors run the plain version; CUDA tensors run K1, K2 (support_hy),
+    K3 (target) or K2+K3. Operands with no batch axis are broadcast."""
+    B, dev = q.shape[0], q.device
+    tau = _batched(tau, B, 1, torch.float32, dev)
+    stones = _batched(stones, B, 2, torch.float32, dev)
+    stone_radius = _batched(stone_radius, B, 0, torch.float32, dev)
+    use_ground = _batched(use_ground, B, 0, torch.bool, dev)
+    if target is not None:
+        target = _batched(target, B, 1, torch.float32, dev)
+        power = _batched(1.0 if power is None else power, B, 0, torch.float32, dev)
+    _check_inputs(model, q, qd, tau, stones, stone_radius, use_ground, target, power)
     check_model(model, stones.shape[1])
-    if q.device.type == "cpu":
-        st, info = engine._step_scan(model, engine.PhysicsState(q, qd), tau, stones,
-                                     stone_radius, use_ground, cparams, substeps)
+    if dev.type == "cpu":
+        st, info = engine._step_scan(
+            model, engine.PhysicsState(q, qd), tau, stones, stone_radius, use_ground,
+            cparams, substeps, pd=None if target is None else (target, power),
+            support_hy=support_hy)
         return st.q, st.qd, info
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     q_t, qd_t, info = CONTROL_STEP.launch(
         model, *to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground),
-        cparams, substeps)
+        cparams, substeps, target_t=None if target is None else target.t().contiguous(),
+        power=power, support_hy=support_hy)
     nj = model.njoints
     return q_t.t().contiguous(), qd_t.t().contiguous(), engine.StepInfo(
         foot_contact=(info[0:2] > 0.0).t(),
@@ -262,28 +323,43 @@ def control_step(
     )
 
 
-def control_step_bytes(model: RobotModel, n_stones: int) -> int:
-    """Bytes K1 must move per env: every input read once, every output
-    written once (f32)."""
+def control_step_bytes(model: RobotModel, n_stones: int, pd: bool = False) -> int:
+    """Bytes a control step must move per env: every input read once,
+    every output written once (f32); stable PD adds the targets and the
+    power."""
     inputs = model.nq + model.ndof + model.njoints + 6 * n_stones + 2
+    if pd:
+        inputs += model.njoints + 1
     outputs = model.nq + model.ndof + model.njoints + 7
     return 4 * (inputs + outputs)
 
 
-def control_step_flops(model: RobotModel, n_stones: int, substeps: int) -> int:
+def control_step_flops(model: RobotModel, n_stones: int, substeps: int,
+                       pd: bool = False, support_hy=None) -> int:
     """fp32 operations one env's control step needs, counted section by
     section from csrc/control_step.cu: each add, multiply, divide,
-    min/max, sqrt, rsqrt and sin/cos counts one (an FMA counts two). The
-    Cholesky factor and solves are counted at the ancestor sparsity of the
-    mass matrix (no fill-in for a tree), the work the function needs; the
-    kernel's dense loops do more."""
+    min/max, abs, sqrt, rsqrt and sin/cos counts one (an FMA counts two).
+    The Cholesky factor and solves are counted at the ancestor sparsity of
+    the mass matrix (no fill-in for a tree), the work the function needs;
+    the kernel's dense loops do more. Stable PD adds the per-joint torque
+    and the two diagonal terms on every joint with a gain; planks add each
+    stone's in-plane axes (once per control step) and the second bound of
+    the box test."""
     nb, nj, nd, nc, S = model.nbodies, model.njoints, model.ndof, model.ncontacts, n_stones
     mask = _ancestor_mask(model)
     pairs = int(mask.sum())                      # nonzeros of the lower triangle
     fk = nj * 67 + nb * 96                       # joint frames; R, CoM, world inertia
     vel = nj * 54                                # motion axes, body velocities
-    contact = nc * (33 + 24 * S + 2 + 53)        # per sphere: pose, S stone tests, force
+    # per stone and sphere: relative position (3), height (5), lateral (6),
+    # penetration (1), bound (disc: |lat| 6; plank: two projections 10,
+    # two abs 2, one compare more 1), validity and the running max (3)
+    per_stone = 24 if support_hy is None else 31
+    contact = nc * (33 + per_stone * S + 2 + 53)  # per sphere: pose, S stone tests, force
     joints = nj * 22                             # limit, passive, implicit diagonals
+    if pd:
+        # kp (target - q) - kd qd (5), clamp (2), power x torque and its add
+        # (2), power x kd and x kp and their adds (4)
+        joints += 13 * int(np.count_nonzero((model.kp != 0) | (model.kd != 0)))
     crba = nb * 32 + nj * 10 + nd * 42 + pairs * 12
     rnea = nj * 42 + nb * 126 + nj * 6 + nd * 12
     chol = 0
@@ -295,4 +371,7 @@ def control_step_flops(model: RobotModel, n_stones: int, substeps: int) -> int:
     solves = 2 * (2 * (pairs - nd) + nd)
     euler = 3 * nd + 40 + 2 * nc
     per_substep = fk + vel + contact + joints + crba + rnea + nd * 5 + chol + solves + euler
-    return substeps * per_substep + 7 * S
+    # stone normals (7 per stone); plank axes: heading cos/sin (2), h.n (5),
+    # projection (6), norm and scale (9), n x ux (9)
+    per_step = 7 * S + (31 * S if support_hy is not None else 0)
+    return substeps * per_substep + per_step

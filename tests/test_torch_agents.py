@@ -44,18 +44,23 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _nets(num_ensembles, seed=0):
-    net = JActorCritic(action_dim=21, num_ensembles=num_ensembles)
-    params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, 60)))
-    policy = TActorCritic(60, 21, num_ensembles=num_ensembles, device="cpu")
+def _nets(num_ensembles, seed=0, obs_dim=60, act_dim=21):
+    net = JActorCritic(action_dim=act_dim, num_ensembles=num_ensembles)
+    params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, obs_dim)))
+    policy = TActorCritic(obs_dim, act_dim, num_ensembles=num_ensembles, device="cpu")
     policy.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return net, params, policy
 
 
-@pytest.mark.parametrize("num_ensembles", [1, 2])
-def test_networks_match_jax_with_carried_weights(num_ensembles):
-    net, params, policy = _nets(num_ensembles)
-    obs = np.random.default_rng(0).standard_normal((32, 60)).astype(np.float32)
+@pytest.mark.parametrize("num_ensembles,obs_dim,act_dim",
+                         [(1, 60, 21), (2, 60, 21), (2, 51, 10)], ids=["1", "2", "cassie"])
+def test_networks_match_jax_with_carried_weights(num_ensembles, obs_dim, act_dim):
+    """Walker3D shapes with 1 and 2 critics, and the round-5 Cassie shapes
+    (51 observations, 10 actions, heads c0/c1)."""
+    net, params, policy = _nets(num_ensembles, obs_dim=obs_dim, act_dim=act_dim)
+    assert sorted(k for k in params["params"] if k.startswith("c")) == [
+        f"c{i}" for i in range(num_ensembles)]
+    obs = np.random.default_rng(0).standard_normal((32, obs_dim)).astype(np.float32)
     with torch.no_grad():
         mean, logstd, value = policy(torch.as_tensor(obs))
         ens = policy.ensemble_values(torch.as_tensor(obs))
@@ -66,7 +71,7 @@ def test_networks_match_jax_with_carried_weights(num_ensembles):
     np.testing.assert_allclose(ens.numpy(), np.asarray(ens_j), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(logstd.detach().numpy(), np.asarray(logstd_j))
     # log-probs of the same actions under the carried-over policy
-    actions = np.random.default_rng(1).uniform(-1, 1, (32, 21)).astype(np.float32)
+    actions = np.random.default_rng(1).uniform(-1, 1, (32, act_dim)).astype(np.float32)
     lp = tdist.log_prob(mean, clamped_logstd(policy).detach(), torch.as_tensor(actions))
     lp_j = jdist.log_prob(mean_j, logstd_j, jnp.asarray(actions))
     np.testing.assert_allclose(lp.numpy(), np.asarray(lp_j), rtol=1e-4, atol=1e-4)
@@ -118,20 +123,13 @@ def test_collect_rollout_matches_jax():
 
     # the draws of that run: action noise from the rollout's key chain, env
     # draws from each env's key chain (which forks at episode ends)
-    action_noise, env_draws = [], []
-    keys, prob, done = state.key, state.cur.sample_prob, np.asarray(aux_j["ep_done"])
-    for t in range(T):
-        key, k_act = jax.random.split(key)
-        action_noise.append(torch.as_tensor(np.array(jax.random.normal(k_act, (N, 21)))))
-        d, k_keep, k_state = draws_mod.step_draws(keys, prob, N_STONES, N_NOISE)
-        env_draws.append(d)
-        keys = jnp.where(done[t][:, None], k_state, k_keep)
+    action_noise, env_draws = draws_mod.rollout_draws(
+        key, state.key, state.cur.sample_prob, aux_j["ep_done"], T, N, 21, N_STONES, N_NOISE)
 
     tv = TVecEnv(tmake_env("Walker3DStepperEnv-v0", device="cpu"), N, device="cpu")
     st_t, obs_t, stats_t, traj_t, aux_t = troll.collect_rollout(
         tv, policy, draws_mod.to_port_state(state), torch.as_tensor(np.array(obs)),
-        troll.EpisodeStats.init(N), T, action_noise=torch.stack(action_noise),
-        env_draws=env_draws)
+        troll.EpisodeStats.init(N), T, action_noise=action_noise, env_draws=env_draws)
 
     traj_j = jax.tree.map(np.asarray, traj_j)
     for f in ("masks", "bad_masks"):

@@ -1,6 +1,6 @@
 """Port parity, core math and model data: steppingstone_tpu_torch's
-quaternion, spatial, model, walker3d and linalg modules against the JAX
-package's, on the same seeded numpy inputs.
+quaternion, spatial, model, walker3d, cassie and linalg modules against the
+JAX package's, on the same seeded numpy inputs.
 
 Tolerances: elementwise fp32 formulas evaluated by two libraries differ in
 the last bits (sin/cos/atan2 implementations, fused multiply-adds), so
@@ -16,10 +16,13 @@ import torch
 from steppingstone_tpu.core import quaternion as jq
 from steppingstone_tpu.core import spatial as jsp
 from steppingstone_tpu.ops import linalg as jla
+from steppingstone_tpu.physics.robots import cassie as jcassie
 from steppingstone_tpu.physics.robots import walker3d as jwalker
 from steppingstone_tpu_torch.core import quaternion as tq
 from steppingstone_tpu_torch.core import spatial as tsp
 from steppingstone_tpu_torch.ops import linalg as tla
+from steppingstone_tpu_torch.physics.robots import REGISTRY as TREGISTRY
+from steppingstone_tpu_torch.physics.robots import cassie as tcassie
 from steppingstone_tpu_torch.physics.robots import walker3d as twalker
 
 B = 16
@@ -102,10 +105,9 @@ def test_spatial_matches_jax(name):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
 
 
-def test_walker3d_model_fields_equal():
-    """Every field of the port's own copy of the model equals the JAX
+def _assert_models_equal(mj, mt):
+    """Every field of the port's own copy of a model equals the JAX
     package's (exact: both are the same numpy construction)."""
-    mj, mt = jwalker.walker3d(), twalker.walker3d()
     import dataclasses
 
     for f in dataclasses.fields(mj):
@@ -117,9 +119,24 @@ def test_walker3d_model_fields_equal():
             assert a == b, f.name
     assert [mt.ancestors(i) for i in range(mt.nbodies)] == [
         mj.ancestors(i) for i in range(mj.nbodies)]
+
+
+def test_walker3d_model_fields_equal():
+    mj, mt = jwalker.walker3d(), twalker.walker3d()
+    _assert_models_equal(mj, mt)
     assert (mt.nbodies, mt.njoints, mt.ndof, mt.nq, mt.ncontacts) == (22, 21, 27, 28, 12)
     assert twalker.RUNNING_START == jwalker.RUNNING_START
     assert twalker.MIRROR == jwalker.MIRROR
+
+
+def test_cassie_model_fields_equal():
+    mj, mt = jcassie.cassie(), tcassie.cassie()
+    _assert_models_equal(mj, mt)
+    assert (mt.nbodies, mt.njoints, mt.ndof, mt.nq, mt.ncontacts) == (15, 14, 20, 21, 5)
+    assert mt.action_dim == 10 and int((mt.kp > 0).sum()) == 10
+    assert tcassie.MIRROR == jcassie.MIRROR
+    assert tcassie.MIRROR_ACTION == jcassie.MIRROR_ACTION
+    assert TREGISTRY["cassie"] is tcassie.cassie
 
 
 @pytest.mark.parametrize("n", [6, 27])

@@ -1,8 +1,10 @@
 """Port parity, physics: steppingstone_tpu_torch's kinematics, contact,
-dynamics and engine against the JAX package on Walker3D (B = 8), and the
-port's control step against the Pallas kernel itself (interpret mode) on
-the pendulum model at one 1024-env tile, as tests/test_pallas_step.py
-runs it.
+dynamics and engine against the JAX package on Walker3D (B = 8), the
+engine's stable-PD and plank variants on Cassie and Walker3D against JAX's
+scan, and the port's control step against the Pallas kernel itself
+(interpret mode) on the pendulum models at one 1024-env tile, as
+tests/test_pallas_step.py runs it (torque/disc, and stable PD with disc and
+plank support).
 
 Tolerances: single-evaluation quantities (kinematics, contact, mass
 matrix, bias) agree to fp32 rounding of sums taken in another order:
@@ -23,12 +25,14 @@ from steppingstone_tpu.physics import dynamics as jdyn
 from steppingstone_tpu.physics import engine as jeng
 from steppingstone_tpu.physics import kinematics as jkin
 from steppingstone_tpu.physics import pallas_step
+from steppingstone_tpu.physics.robots.cassie import cassie as jcassie
 from steppingstone_tpu.physics.robots.walker3d import walker3d as jwalker3d
 from steppingstone_tpu_torch.physics import contact as tct
 from steppingstone_tpu_torch.physics import dynamics as tdyn
 from steppingstone_tpu_torch.physics import engine as teng
 from steppingstone_tpu_torch.physics import kinematics as tkin
 from steppingstone_tpu_torch.physics.model import build_model as tbuild
+from steppingstone_tpu_torch.physics.robots.cassie import cassie as tcassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d as twalker3d
 
 B = 8
@@ -247,14 +251,115 @@ def test_engine_step_matches_pallas_kernel_interpret():
     assert (info.contact_force_sum > 0).float().mean() > 0.3  # contacts engage
 
 
+def _pd_pendulum(build):
+    """tests/test_pallas_step.py's PD pendulum (kp/kd at Cassie's scale)."""
+    bodies = [
+        dict(name="base", mass=5.0, inertia=(0.5, 0.5, 0.5), root_height=1.0),
+        dict(name="arm", parent="base", anchor=(0, 0, 0), axis=(0, 1, 0),
+             mass=1.0, com=(0, 0, -0.5), inertia=(0.05, 0.05, 0.05),
+             damping=0.1, limits=(-2.0, 2.0), kp=60.0, kd=6.0, torque_limit=45.0),
+    ]
+    contacts = [dict(body="arm", offset=(0, 0, -0.5), radius=0.05),
+                dict(body="base", offset=(0, 0, -0.1), radius=0.05)]
+    return build("pd_pendulum", bodies, contacts)
+
+
+def _pd_draws(rng, model, b):
+    """Random actions (some beyond [-1, 1]) and a per-env power in [0.5, 1]."""
+    action = rng.uniform(-1.2, 1.2, (b, model.action_dim)).astype(np.float32)
+    return action, rng.uniform(0.5, 1.0, b).astype(np.float32)
+
+
+def test_pd_target_from_action_matches_jax():
+    mj, mt = jcassie(), tcassie()
+    action, _ = _pd_draws(np.random.default_rng(8), mj, B)
+    ref = jax.vmap(lambda a: jeng.pd_target_from_action(mj, a))(action)
+    out = teng.pd_target_from_action(mt, torch.as_tensor(action))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    kp, kd, lim = teng.pd_gains(mt, "cpu")
+    assert torch.equal(kp == 0, torch.as_tensor(~mj.actuated))
+    assert torch.all(kd[kp == 0] == 0) and torch.all(lim[kp == 0] == 0)
+
+
+@pytest.mark.parametrize("case", ["cassie_pd_disc", "cassie_pd_plank", "walker_plank"])
+def test_engine_step_variants_match_jax_step_scan(case, walker):
+    """engine.step (plain version on the CPU) in its stable-PD (K3), plank
+    (K2) and PD-on-plank (K2+K3) variants against jax.vmap(_step_scan):
+    Cassie driven by PD targets from random actions with a per-env power
+    (tau zeros, unbatched, as the stepper passes it), Walker3D by torques
+    on planks of half-width 1.5 (LargePlank)."""
+    hy = None if case == "cassie_pd_disc" else 1.5
+    mj, mt = (jcassie(), tcassie()) if case.startswith("cassie") else walker
+    rng = np.random.default_rng(9)
+    q, qd, tau, stones, sr, ug = _inputs(rng, mj)
+    q[::2, 7] = mj.joint_upper[0] + 0.05  # half the envs start past a joint limit
+    state = teng.PhysicsState(*_t(q, qd))
+    if case.startswith("cassie"):
+        action, power = _pd_draws(rng, mj, B)
+        target = np.array(jax.vmap(lambda a: jeng.pd_target_from_action(mj, a))(action))
+        zeros = np.zeros(mj.njoints, np.float32)
+        ref = jax.jit(jax.vmap(lambda q_, qd_, tg, pw, st_, r, g: (lambda s, i: (s.q, s.qd, i))(
+            *jeng._step_scan(mj, jeng.PhysicsState(q_, qd_), zeros, st_, r, g,
+                             pd=(tg, pw), support_hy=hy))))(q, qd, target, power, stones, sr, ug)
+        st, info = teng.step(mt, state, torch.zeros(mt.njoints), *_t(stones, sr, ug),
+                             pd_target=torch.as_tensor(target), pd_power=torch.as_tensor(power),
+                             support_hy=hy)
+    else:
+        ref = jax.jit(jax.vmap(lambda q_, qd_, t, st_, r, g: (lambda s, i: (s.q, s.qd, i))(
+            *jeng._step_scan(mj, jeng.PhysicsState(q_, qd_), t, st_, r, g, support_hy=hy))))(
+            q, qd, tau, stones, sr, ug)
+        st, info = teng.step(mt, state, *_t(tau, stones, sr, ug), support_hy=hy)
+    _check_step((st.q, st.qd, info), ref)
+    assert info.foot_contact.any() and (info.foot_stone >= 0).any()
+    assert info.joint_at_limit.any()
+
+
+@pytest.mark.parametrize("support_hy", [None, 0.6])
+def test_engine_step_pd_matches_pallas_kernel_interpret(support_hy):
+    """The port's stable-PD control step (disc, and planks of half-width
+    0.6) against the TPU kernel's `pd=True` variant itself, run in
+    interpret mode at one 1024-env tile on the PD pendulum, as
+    tests/test_pallas_step.py runs it."""
+    from steppingstone_tpu.physics.model import build_model as jbuild
+
+    mj, mt = _pd_pendulum(jbuild), _pd_pendulum(tbuild)
+    n = pallas_step.TILE
+    rng = np.random.default_rng(10)
+    q, qd, _, stones, sr, ug = _inputs(rng, mj, b=n, n_stones=6, drop=0.47, stone_drop=0.0)
+    q[::3, 7] = 2.05  # a third of the arms start past the joint limit
+    action, power = _pd_draws(rng, mj, n)
+    target = np.array(jax.vmap(lambda a: jeng.pd_target_from_action(mj, a))(action))
+    tau = np.zeros((n, mj.njoints), np.float32)
+    fn = pallas_step.build_batched_step(
+        mj, jct.ContactParams(), 4, 6, jeng.SIM_DT, jeng.LIMIT_K, jeng.LIMIT_C,
+        jeng.MAX_QD, jdyn.GRAVITY, interpret=True, pd=True, support_hy=support_hy)
+    qn, qdn, d = fn(*(jnp.asarray(x) for x in (q, qd, tau, target, power, stones, sr, ug)))
+    ref = (qn, qdn, jeng.StepInfo(**d))
+    st, info = teng.step(mt, teng.PhysicsState(*_t(q, qd)), *_t(tau, stones, sr, ug),
+                         pd_target=torch.as_tensor(target), pd_power=torch.as_tensor(power),
+                         support_hy=support_hy)
+    _check_step((st.q, st.qd, info), ref)
+    assert (info.contact_force_sum > 0).float().mean() > 0.3  # contacts engage
+    assert info.joint_at_limit.any()
+
+
 def test_engine_step_refuses_unported_kernels(walker):
+    """Only rotated joint frames (K4) are refused; stable PD and planks
+    return finite states on the CPU."""
+    import dataclasses
+
     _, mt = walker
     q, qd, tau, stones, sr, ug = _t(*_inputs(np.random.default_rng(7), jwalker3d(), b=2))
     state = teng.PhysicsState(q, qd)
-    with pytest.raises(NotImplementedError, match="K3"):
-        teng.step(mt, state, tau, stones, sr, ug, pd_target=torch.zeros_like(tau))
-    with pytest.raises(NotImplementedError, match="K2"):
-        teng.step(mt, state, tau, stones, sr, ug, support_hy=0.6)
+    rot = np.tile(np.array([1, 0, 0, 0], np.float32), (mt.nbodies, 1))
+    with pytest.raises(NotImplementedError, match="K4"):
+        teng.step(dataclasses.replace(mt, joint_rot=rot), state, tau, stones, sr, ug)
+    target = teng.pd_target_from_action(mt, torch.zeros(2, mt.action_dim))
+    for kw in (dict(pd_target=target), dict(support_hy=0.6),
+               dict(pd_target=target, pd_power=0.5, support_hy=1.5)):
+        st, info = teng.step(mt, state, tau, stones, sr, ug, **kw)
+        assert torch.isfinite(st.q).all() and torch.isfinite(st.qd).all(), kw
+        assert st.q.shape == q.shape and info.foot_stone.shape == (2, 2)
 
 
 def test_default_state_matches_jax(walker):

@@ -1,11 +1,12 @@
 """Port parity, envs: steppingstone_tpu_torch's terrain, stepper, registry
-and VecEnv against the JAX package on Walker3D, with the JAX package's
-random draws fed to the port (tests/torch_jax_draws.py).
+and VecEnv against the JAX package on Walker3D and on Cassie with
+LargePlank support, with the JAX package's random draws fed to the port
+(tests/torch_jax_draws.py).
 
-The teacher-forced test loads the JAX state into the port before every
+The teacher-forced tests load the JAX state into the port before every
 step, so each step is compared from identical inputs and errors cannot
-compound; it covers stone hits, resamples, falls with auto-reset and
-mirrored episodes.
+compound; they cover stone hits, resamples, falls with auto-reset and
+mirrored episodes (Walker3D) or mirrored half gait cycles (Cassie).
 
 Tolerances: terrain is fp32 trigonometry and running sums (1e-5); the
 physics state uses the kernel parity bars of tests/test_pallas_step.py;
@@ -23,14 +24,17 @@ import torch_jax_draws as draws_mod
 
 from steppingstone_tpu.envs import make_env as jmake_env
 from steppingstone_tpu.envs import terrain as jterr
+from steppingstone_tpu.envs import stepper as jstepper
 from steppingstone_tpu.envs.vector import VecEnv as JVecEnv
 from steppingstone_tpu_torch.envs import make_env as tmake_env
+from steppingstone_tpu_torch.envs import stepper as tstepper
 from steppingstone_tpu_torch.envs import terrain as tterr
 from steppingstone_tpu_torch.envs.vector import VecEnv as TVecEnv
 
 B = 8
 N_STONES = 20
 N_NOISE = 2 * 21 + 3
+CASSIE_NOISE = 2 * 14 + 3
 
 
 @pytest.fixture(autouse=True)
@@ -41,6 +45,12 @@ def _one_thread():
 @pytest.fixture(scope="module")
 def envs():
     return jmake_env("Walker3DStepperEnv-v0"), tmake_env("Walker3DStepperEnv-v0", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cassie_envs():
+    return (jmake_env("CassieStepper-v1", plank_class="LargePlank"),
+            tmake_env("CassieStepper-v1", device="cpu", plank_class="LargePlank"))
 
 
 def _curricula(rng, b):
@@ -123,19 +133,18 @@ def test_reset_matches_jax(envs):
         np.testing.assert_array_equal(a, b)
 
 
-def test_stepper_teacher_forced_matches_jax(envs):
-    """60 control steps of 8 envs under random actions with mirroring on:
-    at each step the port starts from the JAX state and the JAX draws."""
-    jenv, tenv = envs
+def _teacher_forced(jenv, tenv, steps, key, n_noise, rng):
+    """`steps` control steps of B envs under random actions with mirroring
+    on: at each step the port starts from the JAX state and the JAX draws.
+    Returns counts of hits, episode ends and mirrored env-steps."""
     jv = JVecEnv(jenv, B)
-    state, _ = jv.reset(jax.random.PRNGKey(3))
+    state, _ = jv.reset(key)
     state = jv.set_mirror(state, True)
     step = jax.jit(jv.step)
-    rng = np.random.default_rng(0)
     counts = dict(hit=0, done=0, mirrored=0)
-    for _ in range(60):
-        action = np.clip(0.5 * rng.standard_normal((B, 21)), -1, 1).astype(np.float32)
-        d, _, _ = draws_mod.step_draws(state.key, state.cur.sample_prob, N_STONES, N_NOISE)
+    for _ in range(steps):
+        action = np.clip(0.5 * rng.standard_normal((B, jenv.action_dim)), -1, 1).astype(np.float32)
+        d, _, _ = draws_mod.step_draws(state.key, state.cur.sample_prob, N_STONES, n_noise)
         port_state = draws_mod.to_port_state(state)
         next_state, out = step(state, jnp.asarray(action))
         port_next, port_out = tenv.step(port_state, torch.as_tensor(action), draws=d)
@@ -148,10 +157,55 @@ def test_stepper_teacher_forced_matches_jax(envs):
         draws_mod.assert_states_close(port_next, next_state)
         counts["hit"] += int(out.hit.sum())
         counts["done"] += int(out.done.sum())
-        counts["mirrored"] += int((port_state.mirror_episode & port_state.mirror_enabled).sum())
+        counts["mirrored"] += int(tstepper._mirror_active(tenv.cfg, port_state).sum())
         state = next_state
+    return counts
+
+
+def test_stepper_teacher_forced_matches_jax(envs):
+    """60 control steps of 8 Walker3D envs, mirrored episodes."""
+    counts = _teacher_forced(*envs, 60, jax.random.PRNGKey(3), N_NOISE, np.random.default_rng(0))
     # the run covered what it is meant to cover
     assert counts["hit"] >= 3 and counts["done"] >= 3 and counts["mirrored"] >= 3, counts
+
+
+def test_cassie_stepper_teacher_forced_matches_jax(cassie_envs):
+    """60 control steps of 8 Cassie envs on LargePlank support (stable PD
+    through engine.step's K2+K3 plain version), the phase mirror on: the
+    second half of each 30-step gait cycle runs mirrored."""
+    counts = _teacher_forced(*cassie_envs, 60, jax.random.PRNGKey(7), CASSIE_NOISE,
+                             np.random.default_rng(1))
+    assert counts["hit"] >= 2 and counts["done"] >= 2 and counts["mirrored"] >= 100, counts
+
+
+def test_cassie_obs_layout_and_mirror_tables(cassie_envs):
+    """The clocked 51-dim observation at reset, the Cassie mirror index
+    lists against get_mirror_indices, the sign/permutation tables, and the
+    env constants Cassie overrides."""
+    jenv, tenv = cassie_envs
+    key = jax.random.PRNGKey(11)
+    jv = JVecEnv(jenv, B)
+    ref_state, ref_obs = jv.reset(key)
+    d = draws_mod.reset_draws(draws_mod.vec_reset_keys(key, B), ref_state.cur.sample_prob,
+                              N_STONES, CASSIE_NOISE)
+    state, obs = TVecEnv(tenv, B, device="cpu").reset(draws=d)
+    assert obs.shape == (B, 51) and tenv.action_dim == 10
+    np.testing.assert_allclose(obs.numpy(), np.asarray(ref_obs), rtol=1e-5, atol=1e-5)
+    draws_mod.assert_states_close(state, ref_state, q_tol=(1e-6, 1e-6), qd_tol=(1e-6, 1e-6))
+    for a, b in zip(tenv.get_mirror_indices(), jenv.get_mirror_indices()):
+        np.testing.assert_array_equal(a, b)
+    for name in ("mirror_sign_obs", "mirror_perm_obs", "mirror_sign_act", "mirror_perm_act"):
+        np.testing.assert_array_equal(getattr(tenv, name).numpy(), getattr(jenv, name), err_msg=name)
+    for f in ("actuation", "obs_dim", "termination_height", "clock_period",
+              "init_forward_speed", "support", "plank_hy"):
+        assert getattr(tenv.cfg, f) == getattr(jenv.cfg, f), f
+    assert tenv.standing_height == pytest.approx(jenv.standing_height, abs=1e-6)
+    assert tstepper.PLANK_CLASSES == jstepper.PLANK_CLASSES
+    # the phase gate: mirroring only in the second half of the clock
+    st = state._replace(mirror_enabled=torch.ones(B, dtype=torch.bool),
+                        phase=torch.linspace(0, 0.9, B))
+    np.testing.assert_array_equal(tstepper._mirror_active(tenv.cfg, st).numpy(),
+                                  st.phase.numpy() >= 0.5)
 
 
 def test_vec_env_curriculum_fanouts(envs):
@@ -172,5 +226,9 @@ def test_make_env_ids(envs):
     assert tenv.observation_dim == 60 and tenv.action_dim == 21
     env = tmake_env("mocca_envs:Walker3DStepperEnv-v0", device="cpu")
     assert env.cfg.name == "Walker3DStepperEnv-v0"
-    with pytest.raises(KeyError, match="Walker3DStepperEnv-v0"):
-        tmake_env("CassieStepper-v1", device="cpu")
+    cassie = tmake_env("mocca_envs:CassieStepper-v1", device="cpu", plank_class="Plank",
+                       stall_timeout=0)
+    assert (cassie.observation_dim, cassie.action_dim) == (51, 10)
+    assert (cassie.cfg.support, cassie.cfg.plank_hy, cassie.cfg.stall_timeout) == ("plank", 0.6, 0)
+    with pytest.raises(KeyError, match="CassieStepper-v1"):
+        tmake_env("MikeStepperEnv-v0", device="cpu")

@@ -1,8 +1,9 @@
 """Structure of the PyTorch/CUDA port, checked on the CPU: it imports no
-JAX, its entry points default to the card, the K1 wrapper refuses what the
-kernel cannot take, and the kernel's source is where the build expects
-it. The card-only test holds K1 against its plain version and skips on a
-host without a GPU (run it on the card with `pytest tests/test_torch_structure.py`)."""
+JAX, its entry points default to the card, the control-step wrapper
+refuses what the kernels cannot take and broadcasts unbatched operands,
+and the kernels' source is where the build expects it. The card-only tests
+hold K1, K2, K3 and K2+K3 against their plain version and skip on a host
+without a GPU (run them on the card with `pytest tests/test_torch_structure.py`)."""
 
 import ast
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from steppingstone_tpu_torch.physics import engine, step_kernel
+from steppingstone_tpu_torch.physics.robots.cassie import cassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -40,7 +42,10 @@ def _forbidden(module: str) -> bool:
 
 def test_port_imports_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    for module in ("physics/robots/cassie.py", "agents/gae.py", "agents/mirror.py",
+                   "agents/ppo.py", "runtime/config.py", "runtime/train.py"):
+        assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
     assert not _forbidden("steppingstone_tpu_torch.physics")
@@ -52,11 +57,20 @@ def test_entry_points_default_to_the_card():
     from steppingstone_tpu_torch.envs import make_env
     from steppingstone_tpu_torch.envs.vector import VecEnv
 
+    from steppingstone_tpu_torch.runtime.config import TrainConfig
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
     if torch.cuda.is_available():
         assert make_env("Walker3DStepperEnv-v0").device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_env("Walker3DStepperEnv-v0")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_env("CassieStepper-v1", plank_class="LargePlank")
+    cfg = TrainConfig(num_processes=4, episode_steps=8, num_frames=8, num_tests=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    assert Trainer(cfg, device="cpu").venv.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ActorCritic(60, 21)
     env = make_env("Walker3DStepperEnv-v0", device="cpu")
@@ -73,10 +87,16 @@ def _k1_args(b=4, n_stones=20):
                torch.full((b,), 0.25), torch.zeros(b, dtype=torch.bool)]
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "batch", "model"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "batch", "model", "target",
+                                  "power"])
 def test_k1_wrapper_rejects_bad_inputs(case):
     m, args = _k1_args()
-    if case == "dtype":
+    kw = {}
+    if case == "target":
+        kw, err = dict(target=torch.zeros(4, m.njoints - 1)), ValueError
+    elif case == "power":
+        kw, err = dict(target=torch.zeros(4, m.njoints), power=torch.ones(4).double()), TypeError
+    elif case == "dtype":
         args[0], err = args[0].double(), TypeError
     elif case == "shape":
         args[2], err = args[2][:, :20].contiguous(), ValueError
@@ -87,7 +107,7 @@ def test_k1_wrapper_rejects_bad_inputs(case):
     else:
         args[3], err = torch.zeros(4, step_kernel.MAXS + 1, 6), ValueError
     with pytest.raises(err):
-        step_kernel.control_step(m, *args)
+        step_kernel.control_step(m, *args, **kw)
 
 
 def test_k1_wrapper_refuses_rotated_frames():
@@ -107,7 +127,27 @@ def test_k1_wrapper_runs_the_plain_version_on_cpu():
     st, ref = engine._step_scan(m, engine.PhysicsState(args[0], args[1]), *args[2:])
     assert torch.equal(q, st.q) and torch.equal(qd, st.qd)
     assert torch.equal(info.foot_stone, ref.foot_stone)
-    assert step_kernel.CONTROL_STEP.launches == 0
+    assert step_kernel.CONTROL_STEP.launches == dict.fromkeys(step_kernel.VARIANTS, 0)
+
+
+def test_wrapper_broadcasts_unbatched_operands():
+    """The stepper's PD path passes one env's zero torques and a scalar
+    power; the wrapper repeats unbatched operands over the batch, as the
+    JAX package's vmap rule does, and runs the plain version on the CPU."""
+    m = cassie()
+    st = engine.default_state(m, 3)
+    stones = torch.zeros(20, 6)
+    target = engine.pd_target_from_action(m, torch.linspace(-1, 1, m.action_dim)[None])[0]
+    out = step_kernel.control_step(m, st.q, st.qd, torch.zeros(m.njoints), stones, 0.25, False,
+                                   target=target, power=0.7, support_hy=1.5)
+    ref = engine._step_scan(m, st, torch.zeros(3, m.njoints), stones.expand(3, 20, 6),
+                            torch.full((3,), 0.25), torch.zeros(3, dtype=torch.bool),
+                            pd=(target.expand(3, -1), torch.full((3,), 0.7)), support_hy=1.5)
+    assert torch.equal(out[0], ref[0].q) and torch.equal(out[1], ref[0].qd)
+    assert sum(step_kernel.CONTROL_STEP.launches.values()) == 0
+    assert [step_kernel.variant(pd, hy) for pd, hy in
+            [(False, False), (False, True), (True, False), (True, True)]] == list(
+        step_kernel.VARIANTS)
 
 
 def test_kernel_source_is_the_only_one():
@@ -127,6 +167,15 @@ def test_k1_bound_counts():
     assert step_kernel.control_step_bytes(m, 20) == 4 * (198 + 83)
     flops = step_kernel.control_step_flops(m, 20, 4)
     assert 5e4 < flops < 5e5
+    # planks: 20 stones' axes once, and 7 more operations per stone test
+    assert step_kernel.control_step_flops(m, 20, 4, support_hy=1.5) == (
+        flops + 31 * 20 + 4 * 12 * 7 * 20)
+    # Cassie's stable PD: 10 actuated joints, targets and power read
+    c = cassie()
+    assert step_kernel.control_step_bytes(c, 20, pd=True) == (
+        step_kernel.control_step_bytes(c, 20) + 4 * (14 + 1))
+    assert step_kernel.control_step_flops(c, 20, 4, pd=True) == (
+        step_kernel.control_step_flops(c, 20, 4) + 4 * 13 * 10)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card and nvcc")
@@ -142,12 +191,54 @@ def test_k1_matches_plain_on_the_card(batch):
     args[2] += 20 * torch.randn(args[2].shape, generator=g, device="cuda")
     args[3][..., :2] = torch.rand(args[3][..., :2].shape, generator=g, device="cuda") - 0.5
     args[5] = torch.rand(batch, generator=g, device="cuda") < 0.5
-    before = step_kernel.CONTROL_STEP.launches
+    before = step_kernel.CONTROL_STEP.launches["K1"]
     q, qd, info = step_kernel.control_step(m, *args)
-    assert step_kernel.CONTROL_STEP.launches == before + 1
+    assert step_kernel.CONTROL_STEP.launches["K1"] == before + 1
     st, ref = engine._step_scan(m, engine.PhysicsState(args[0], args[1]), *args[2:])
     torch.cuda.synchronize()
     torch.testing.assert_close(q, st.q, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(qd, st.qd, rtol=2e-3, atol=2e-2)
     assert (info.foot_contact == ref.foot_contact).float().mean() > 0.999
     assert (info.foot_stone == ref.foot_stone).float().mean() > 0.995
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("variant", ["K2", "K3", "K2+K3"])
+def test_k2_k3_match_plain_on_the_card(variant):
+    """K2 on Walker3D torques over LargePlank planks, K3 on Cassie PD over
+    discs, K2+K3 on Cassie PD over planks, against the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pd, plank = step_kernel.VARIANTS[variant]
+    batch = 1000
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m = cassie() if pd else walker3d()
+    st = engine.default_state(m, batch, "cuda")
+    q = st.q.clone()
+    q[:, 2] -= 0.15
+    q[:, 7:] += 0.1 * torch.randn(q[:, 7:].shape, generator=g, device="cuda")
+    qd = 0.3 * torch.randn(st.qd.shape, generator=g, device="cuda")
+    stones = torch.zeros(batch, 20, 6, device="cuda")
+    stones[..., :2] = torch.rand(stones[..., :2].shape, generator=g, device="cuda") - 0.5
+    stones[..., 3] = torch.rand(stones[..., 3].shape, generator=g, device="cuda") - 0.5
+    stones[..., 2] = -0.15
+    args = [q, qd, torch.zeros(batch, m.njoints, device="cuda") if pd else
+            20 * torch.randn(batch, m.njoints, generator=g, device="cuda"), stones,
+            torch.full((batch,), 0.25, device="cuda"),
+            torch.rand(batch, generator=g, device="cuda") < 0.5]
+    kw = dict(support_hy=1.5 if plank else None)
+    if pd:
+        action = 2 * torch.rand(batch, m.action_dim, generator=g, device="cuda") - 1
+        kw.update(target=engine.pd_target_from_action(m, action),
+                  power=0.5 + 0.5 * torch.rand(batch, generator=g, device="cuda"))
+    before = step_kernel.CONTROL_STEP.launches[variant]
+    q1, qd1, info = step_kernel.control_step(m, *args, **kw)
+    assert step_kernel.CONTROL_STEP.launches[variant] == before + 1
+    pd_args = (kw["target"], kw["power"]) if pd else None
+    ref_st, ref = engine._step_scan(m, engine.PhysicsState(q, qd), *args[2:], pd=pd_args,
+                                    support_hy=kw["support_hy"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q1, ref_st.q, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(qd1, ref_st.qd, rtol=2e-3, atol=2e-2)
+    assert (info.foot_contact == ref.foot_contact).float().mean() > 0.999
+    assert (info.foot_stone == ref.foot_stone).float().mean() > 0.995
+    assert (info.joint_at_limit == ref.joint_at_limit).float().mean() > 0.999

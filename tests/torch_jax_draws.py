@@ -101,7 +101,34 @@ def assert_states_close(port, ref, q_tol=(2e-4, 2e-4), qd_tol=(2e-3, 2e-2)):
     np.testing.assert_allclose(port.terrain.numpy(), r.terrain, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(port.foot_xyz.numpy(), r.foot_xyz, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(port.prev_dist.numpy(), r.prev_dist, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(port.phase.numpy(), r.phase, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(port.robot_power.numpy(), r.robot_power)
     for f in ("next_step_index", "elapsed", "last_hit", "update_terrain", "foot_contact",
               "mirror_enabled", "mirror_episode"):
         np.testing.assert_array_equal(getattr(port, f).numpy(), getattr(r, f), err_msg=f)
 
+
+
+def ppo_perms(key, batch_size: int, epochs: int, used: int, device="cpu") -> torch.Tensor:
+    """(epochs, used) row orders of the JAX package's ppo_update(key=key)."""
+    keys = jax.random.split(key, epochs)
+    return torch.stack([torch.as_tensor(np.array(jax.random.permutation(k, batch_size)[:used]),
+                                        dtype=torch.long, device=device) for k in keys])
+
+
+def rollout_draws(key, env_keys, prob, ep_done, steps: int, n_envs: int, action_dim: int,
+                  n_stones: int, n_noise: int, device="cpu"):
+    """(action noise (T, N, A), [EnvStepDraws] * T) of the JAX package's
+    collect_rollout(key=key) from envs whose keys are `env_keys`: action
+    noise from the rollout's key chain, env draws from each env's key chain,
+    which forks at the episode ends `ep_done` (T, N) of that run."""
+    noise, env_draws = [], []
+    done = np.asarray(ep_done)
+    for t in range(steps):
+        key, k_act = jax.random.split(key)
+        noise.append(torch.as_tensor(np.array(jax.random.normal(k_act, (n_envs, action_dim))),
+                                     device=device))
+        d, k_keep, k_state = step_draws(env_keys, prob, n_stones, n_noise, device)
+        env_draws.append(d)
+        env_keys = jnp.where(done[t][:, None], k_state, k_keep)
+    return torch.stack(noise), env_draws
