@@ -4,20 +4,24 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc; builds every kernel from this checkout's
-sources. Phases, in order; any failure exits non-zero and no phase's
-failure is caught:
+sources (and the URDF parser with the host C++ compiler). Phases, in
+order; any failure exits non-zero and no phase's failure is caught:
 
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
-   the four variants K1, K2, K3, K2+K3) and ptxas's registers and stack
-   frame for each
+   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4) and
+   ptxas's registers, stack frame and spills for each
 3. each variant against its plain PyTorch version (engine._step_scan) on
-   the card at B=4096 and a ragged B=1000, on states from a short rollout
+   the card at B=4096 and a ragged B=1000 (K2 also at 1024 and 64, the
+   round-5 Walker3D run's fleet and test fleet), on states from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
    all occur; K1 on Walker3D torques over discs, K2 on Walker3D torques
    over LargePlank planks, K3 on Cassie stable PD over discs, K2+K3 on
-   Cassie stable PD over planks; then each variant's time per launch
+   Cassie stable PD over planks, and the K4 variants on the same four
+   with fixed joint rotations drawn from a seed (the repo holds no
+   full-width URDF robot); then each variant's time per launch (K2's also
+   at 1024 and 64)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
    the plain version allowed):
@@ -34,6 +38,26 @@ failure is caught:
      4096 envs x 25 steps, exactly 25 launches
    - one Cassie LargePlank training iteration on the card against the
      same iteration on the CPU, on shared draws
+   - the URDF path: the test robot of tests/test_urdf.py through
+     urdf.load_urdf and 60 engine.step calls at 4096 envs (exactly 60 K4
+     launches), then loaded with kp/kd and driven by PD targets (60 K3+K4);
+     it lands on its spheres above -0.1 m; one more step from the loop's
+     first state, its landing and its last state is held against the
+     plain version, as in 3
+   - rotated Walker3D through 100 engine.step calls at 4096 envs (100 K4),
+     rotated Walker3D on planks (25 K2+K4), rotated Cassie PD on planks
+     (25 K2+K3+K4)
+   - the training loop: Trainer.train from the CLI's parser on the round-5
+     Walker3D run (scripts/round5_runs.sh COMMON + HARDEN + runs/r5_w3d:
+     1024 envs x 400 steps, minibatches of 1024, 64 test envs every 10
+     updates, LargePlank, fixed curriculum), cut to 2 updates, then
+     resumed from checkpoints/latest for a third: K2 launches equal the
+     control steps taken (test fleet included), progress.csv has the
+     reference header, the artifacts exist, losses are finite
+   - resume is total on the card: 256 envs x 16 steps, 2 + 2 updates
+     against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
+     abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
+     second unbroken run
 5. one JSON line `{"kernels": [...]}`, the card line, and last
    `{"ok": true, "device": {...}}`
 """
@@ -42,15 +66,24 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 NUM_ENVS = 4096
 ROLLOUT_STEPS = 100
 CHECK_BATCHES = (4096, 1000)
+# the round-5 Walker3D run's fleet and test fleet (R5_W3D)
+R5_ENVS, R5_TEST_ENVS = 1024, 64
+# K2 is also held to its plain version, and timed, at the batch sizes its
+# path gives it
+PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
 TRAIN_STEPS = 100
@@ -64,17 +97,104 @@ CASSIE_RUN = dict(env_name="CassieStepper-v1", plank_class="LargePlank", use_pha
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# variant -> the env whose states and support it is checked on
+# variant -> the env whose states and support it is checked on; the K4
+# variants run those robots with fixed joint rotations drawn from ROT_SEED
 VARIANT_ENVS = {
     "K1": ("Walker3DStepperEnv-v0", {}),
     "K2": ("Walker3DStepperEnv-v0", {"plank_class": "LargePlank"}),
     "K3": ("CassieStepper-v1", {}),
     "K2+K3": ("CassieStepper-v1", {"plank_class": "LargePlank"}),
+    "K4": ("Walker3DStepperEnv-v0", {}),
+    "K2+K4": ("Walker3DStepperEnv-v0", {"plank_class": "LargePlank"}),
+    "K3+K4": ("CassieStepper-v1", {}),
+    "K2+K3+K4": ("CassieStepper-v1", {"plank_class": "LargePlank"}),
 }
-SPECIALIZATION = {"K1": "pd=False, support_hy=None", "K2": "pd=False, support_hy=1.5",
-                  "K3": "pd=True, support_hy=None", "K2+K3": "pd=True, support_hy=1.5"}
-# template arguments <PD, PLANK> as they appear in the kernels' mangled names
-MANGLED = {"ILb0ELb0E": "K1", "ILb0ELb1E": "K2", "ILb1ELb0E": "K3", "ILb1ELb1E": "K2+K3"}
+ROT_SEED = 5
+# template arguments <PD, PLANK, ROT> as they appear in the kernels' mangled names
+MANGLED = {"ILb" + "ELb".join(str(int(b)) for b in flags) + "EE": v
+           for v, flags in {"K1": (0, 0, 0), "K2": (0, 1, 0), "K3": (1, 0, 0),
+                            "K2+K3": (1, 1, 0), "K4": (0, 0, 1), "K2+K4": (0, 1, 1),
+                            "K3+K4": (1, 0, 1), "K2+K3+K4": (1, 1, 1)}.items()}
+URDF_STEPS = 60
+ROT_WALKER_STEPS = 100
+ROT_PLANK_STEPS = 25
+# the round-5 Walker3D run, runs/r5_w3d (scripts/round5_runs.sh: COMMON,
+# HARDEN and its own line), cut in depth to UPDATES_FIRST updates then a
+# resume to UPDATES_RESUMED
+R5_W3D = [f"num_processes={R5_ENVS}", "episode_steps=409600", "mini_batch_size=1024",
+          f"num_tests={R5_TEST_ENVS}",
+          "test_interval=10", "mesh_devices=1", "use_mirror=True", "episode_log=True", "seed=8",
+          "test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
+          "anneal_updates=150", "kl_cutoff=0.12",
+          "env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank", "use_curriculum=True",
+          "checkpoint_interval=1"]
+UPDATES_FIRST, UPDATES_RESUMED = 2, 3
+PROGRESS_HEADER = ["iter", "total_num_steps", "fps", "entropy", "value_loss", "action_loss",
+                   "mean_rew", "median_rew", "min_rew", "max_rew", "test_mean_rew",
+                   "test_median_rew", "test_min_rew", "test_max_rew"]
+# the URDF of tests/test_urdf.py (a 2-link hopper with a fixed head and a
+# rotated knee frame)
+TESTBOT_URDF = """<?xml version="1.0"?>
+<robot name="testbot">
+  <!-- a 2-link hopper with a fixed head -->
+  <link name="base">
+    <inertial>
+      <mass value="5.0"/>
+      <origin xyz="0 0 0.1"/>
+      <inertia ixx="0.05" iyy="0.06" izz="0.04" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <origin xyz="0 0 0"/>
+      <geometry><sphere radius="0.1"/></geometry>
+    </collision>
+  </link>
+  <link name="head">
+    <inertial>
+      <mass value="1.0"/>
+      <origin xyz="0 0 0.05"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+  </link>
+  <joint name="neck" type="fixed">
+    <parent link="base"/>
+    <child link="head"/>
+    <origin xyz="0 0 0.3"/>
+  </joint>
+  <link name="right_thigh">
+    <inertial>
+      <mass value="2.0"/>
+      <origin xyz="0 0 -0.2"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.005" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+  </link>
+  <joint name="right_hip" type="revolute">
+    <parent link="base"/>
+    <child link="right_thigh"/>
+    <origin xyz="0 -0.1 -0.05" rpy="0 0 0"/>
+    <axis xyz="0 1 0"/>
+    <limit lower="-1.5" upper="1.5" effort="80"/>
+    <dynamics damping="0.5"/>
+  </joint>
+  <link name="right_foot">
+    <inertial>
+      <mass value="0.5"/>
+      <origin xyz="0 0 -0.05"/>
+      <inertia ixx="0.002" iyy="0.002" izz="0.002" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <origin xyz="0 0 -0.1"/>
+      <geometry><sphere radius="0.04"/></geometry>
+    </collision>
+  </link>
+  <joint name="right_knee" type="revolute">
+    <parent link="right_thigh"/>
+    <child link="right_foot"/>
+    <origin xyz="0 0 -0.4" rpy="0.1 0 0"/>
+    <axis xyz="0 1 0"/>
+    <limit lower="-2.0" upper="0.1" effort="60"/>
+  </joint>
+</robot>
+"""
 
 
 def card_line() -> str:
@@ -142,6 +262,22 @@ def check_finite(what: str, tensors: dict) -> None:
             raise AssertionError(f"non-finite {name} in {what}")
 
 
+def variant_env(variant: str):
+    """The env a variant is checked on (make_env; for the K4 variants the
+    same robot with fixed joint rotations drawn from ROT_SEED)."""
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.envs.stepper import StepperEnv
+    from steppingstone_tpu_torch.physics.model import with_rotated_frames
+    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
+
+    name, kw = VARIANT_ENVS[variant]
+    env = make_env(name, **kw)
+    if VARIANTS[variant][2]:
+        model = with_rotated_frames(env.cfg.model, ROT_SEED)
+        env = StepperEnv(dataclasses.replace(env.cfg, model=model), env.device)
+    return env
+
+
 def kernel_inputs(env, batch: int, seed: int):
     """Inputs of one control step at batch size `batch`: the state after a
     short random-action rollout of the port, perturbed as in
@@ -188,12 +324,13 @@ def kernel_inputs(env, batch: int, seed: int):
     return (q, qd, tau, state.terrain.contiguous(), r_eff.contiguous(), use_ground), kw
 
 
-def plain_version(model, args, kw):
+def plain_version(model, args, kw, substeps=None):
     from steppingstone_tpu_torch.physics import engine
 
     pd = (kw["target"], kw["power"]) if "target" in kw else None
     return engine._step_scan(model, engine.PhysicsState(args[0], args[1]), *args[2:], pd=pd,
-                             support_hy=kw.get("support_hy"))
+                             support_hy=kw.get("support_hy"),
+                             substeps=engine.SUBSTEPS if substeps is None else substeps)
 
 
 def plank_only_fraction(env, args, kw) -> float:
@@ -215,44 +352,134 @@ def plank_only_fraction(env, args, kw) -> float:
     return float(((plank.stone_index >= 0) & (disc.stone_index < 0)).float().mean())
 
 
-def check_variant(env, variant: str, batch: int):
-    """A kernel variant against engine._step_scan on the same inputs;
-    raises on a miss. Returns (metrics, the inputs)."""
+# A joint limit switches a stiff spring on (engine.LIMIT_K) where the input
+# q of a substep passes the limit: a trajectory that passes within
+# LIMIT_FLIP_MARGIN rad (a few fp32 ulps at the joints' scale) of a limit
+# may land on either side in two fp32 implementations. At most
+# MAX_FLIP_SHARE of the envs may miss the q / qd / foot-force bars that way
+# (the Pallas bars let the discrete diagnostics disagree on 0.1%), each
+# shown to be one by limit_flips.
+LIMIT_FLIP_MARGIN = 1e-6
+MAX_FLIP_SHARE = 1e-3
+
+
+def misses(q, qd, force, st, ref):
+    """Per env: whether (q, qd, foot force) miss the Pallas bars (q 2e-4,
+    qd 2e-3/2e-2, foot force 1e-2/1.0) against the plain version's
+    (state, info)."""
+    miss = lambda a, b, rtol, atol: ((a - b).abs() > atol + rtol * b.abs()).any(dim=1)
+    return (miss(q, st.q, 2e-4, 2e-4) | miss(qd, st.qd, 2e-3, 2e-2)
+            | miss(force, ref.foot_normal_force, 1e-2, 1.0))
+
+
+def limit_flips(model, args, kw, envs):
+    """For envs whose control step misses the bars, substep by substep:
+    (a) from the plain version's state, the kernel matches each substep
+    within the bars (q, qd, foot force) with the same at-limit flags;
+    (b) on their own trajectories the kernel and the plain version first
+    miss the bars in a substep whose at-limit flags differ; (c) there the
+    plain version's input q lies within LIMIT_FLIP_MARGIN of that joint's
+    limit. Raises otherwise; returns each env's distance in (c)."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import engine, step_kernel
+
+    sub = [a[envs].contiguous() for a in args]
+    sub_kw = {k: v[envs].contiguous() if torch.is_tensor(v) else v for k, v in kw.items()}
+    lo = torch.as_tensor(model.joint_lower, device="cuda")
+    hi = torch.as_tensor(model.joint_upper, device="cuda")
+    n = len(envs)
+    q, qd = sub[0], sub[1]          # the plain version's trajectory
+    qk, qdk = q, qd                 # the kernel's own trajectory
+    parted = torch.zeros(n, dtype=torch.bool, device="cuda")
+    flipped = torch.zeros(n, dtype=torch.bool, device="cuda")
+    distance = torch.full((n,), float("inf"), device="cuda")
+    for _ in range(engine.SUBSTEPS):
+        st, ref = plain_version(model, [q, qd] + sub[2:], sub_kw, substeps=1)
+        q1, qd1, info1 = step_kernel.control_step(model, q, qd, *sub[2:], substeps=1, **sub_kw)
+        torch.testing.assert_close(q1, st.q, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(qd1, st.qd, rtol=2e-3, atol=2e-2)
+        torch.testing.assert_close(info1.foot_normal_force, ref.foot_normal_force,
+                                   rtol=1e-2, atol=1.0)
+        if not torch.equal(info1.joint_at_limit, ref.joint_at_limit):
+            raise AssertionError(f"envs {envs}: at-limit flags differ from the same state")
+        qk, qdk, infok = step_kernel.control_step(model, qk, qdk, *sub[2:], substeps=1,
+                                                  **sub_kw)
+        first = misses(qk, qdk, infok.foot_normal_force, st, ref) & ~parted
+        differ = infok.joint_at_limit != ref.joint_at_limit
+        gap = torch.minimum((q[:, 7:] - lo).abs(), (q[:, 7:] - hi).abs())
+        gap = torch.where(differ, gap, float("inf")).min(dim=1).values
+        flipped |= first & differ.any(dim=1) & (gap < LIMIT_FLIP_MARGIN)
+        distance = torch.where(first, gap, distance)
+        parted |= first
+        q, qd = st.q, st.qd
+    if not bool(flipped.all()):
+        raise AssertionError(f"envs {envs} are not joint-limit flips (parted {parted.tolist()}, "
+                             f"input q's distance to the limit whose flag differs "
+                             f"{distance.tolist()})")
+    return distance.tolist()
+
+
+def compare_step(model, what: str, args, kw, **extra) -> dict:
+    """One control step of the kernel against engine._step_scan on the same
+    inputs, under the Pallas bars of tests/test_pallas_step.py, on every env
+    but the joint-limit flips (see limit_flips); raises on a miss. Returns
+    the errors and the inputs' contact, stone and limit shares."""
     import torch
 
     from steppingstone_tpu_torch.physics import step_kernel
 
-    model = env.cfg.model
-    args, kw = kernel_inputs(env, batch, seed=batch)
-    if step_kernel.variant("target" in kw, "support_hy" in kw) != variant:
-        raise AssertionError(f"{variant} inputs select another variant")
+    batch = args[0].shape[0]
     q, qd, info = step_kernel.control_step(model, *args, **kw)
     st, ref = plain_version(model, args, kw)
     torch.cuda.synchronize()
+    outliers = torch.nonzero(misses(q, qd, info.foot_normal_force, st, ref))[:, 0]
+    if len(outliers) > MAX_FLIP_SHARE * batch:
+        raise AssertionError(f"{what}: {len(outliers)} of {batch} envs miss the bars")
+    flips = limit_flips(model, args, kw, outliers) if len(outliers) else []
+    keep = torch.ones(batch, dtype=torch.bool, device="cuda")
+    keep[outliers] = False
     agree = lambda a, b: float((a == b).float().mean())
     got = dict(
-        variant=variant,
         batch=batch,
-        max_q_err=float((q - st.q).abs().max()),
-        max_qd_err=float((qd - st.qd).abs().max()),
+        max_q_err=float((q - st.q)[keep].abs().max()),
+        max_qd_err=float((qd - st.qd)[keep].abs().max()),
+        limit_flips=len(flips),
+        limit_flip_distance=flips,
         foot_contact_agreement=agree(info.foot_contact, ref.foot_contact),
         foot_stone_agreement=agree(info.foot_stone, ref.foot_stone),
         at_limit_agreement=agree(info.joint_at_limit, ref.joint_at_limit),
-        max_foot_force_err=float((info.foot_normal_force - ref.foot_normal_force).abs().max()),
+        max_foot_force_err=float((info.foot_normal_force - ref.foot_normal_force)[keep].abs().max()),
         contact_fraction=float(ref.foot_contact.float().mean()),
+        envs_in_contact=float((ref.contact_force_sum > 0).float().mean()),
         on_stone_fraction=float((ref.foot_stone >= 0).float().mean()),
         at_limit_fraction=float(ref.joint_at_limit.float().mean()),
+        **extra,
     )
-    if "support_hy" in kw:
-        got["plank_only_fraction"] = plank_only_fraction(env, args, kw)
-    print(f"{variant} vs plain:", json.dumps(got), flush=True)
-    # tolerances of tests/test_pallas_step.py
-    torch.testing.assert_close(q, st.q, rtol=2e-4, atol=2e-4)
-    torch.testing.assert_close(qd, st.qd, rtol=2e-3, atol=2e-2)
-    torch.testing.assert_close(info.foot_normal_force, ref.foot_normal_force, rtol=1e-2, atol=1.0)
+    print(f"{what} vs plain:", json.dumps(got), flush=True)
+    torch.testing.assert_close(q[keep], st.q[keep], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(qd[keep], st.qd[keep], rtol=2e-3, atol=2e-2)
+    torch.testing.assert_close(info.foot_normal_force[keep], ref.foot_normal_force[keep],
+                               rtol=1e-2, atol=1.0)
     if not (got["foot_contact_agreement"] > 0.999 and got["foot_stone_agreement"] > 0.995
             and got["at_limit_agreement"] > 0.999):
-        raise AssertionError(f"{variant} diagnostics disagree with the plain version: {got}")
+        raise AssertionError(f"{what}: diagnostics disagree with the plain version: {got}")
+    return got
+
+
+def check_variant(env, variant: str, batch: int):
+    """A kernel variant against engine._step_scan (compare_step) on inputs
+    that engage contacts, stones, joint limits and (planks) plank-only
+    support. Returns (metrics, the inputs)."""
+    from steppingstone_tpu_torch.physics import step_kernel
+
+    model = env.cfg.model
+    args, kw = kernel_inputs(env, batch, seed=batch)
+    if step_kernel.variant("target" in kw, "support_hy" in kw,
+                           model.joint_rot is not None) != variant:
+        raise AssertionError(f"{variant} inputs select another variant")
+    extra = {"plank_only_fraction": plank_only_fraction(env, args, kw)} if "support_hy" in kw else {}
+    got = compare_step(model, variant, args, kw, variant=variant, **extra)
     if not (0 < got["contact_fraction"] < 1 and got["on_stone_fraction"] > 0
             and got["at_limit_fraction"] > 0 and got.get("plank_only_fraction", 1) > 0):
         raise AssertionError(f"inputs did not engage contacts, limits and planks: {got}")
@@ -264,7 +491,7 @@ def time_variant(env, variant: str, args, kw) -> dict:
 
     model, kernel = env.cfg.model, step_kernel.CONTROL_STEP
     soa = step_kernel.to_kernel_layout(*args)
-    pd, hy = "target" in kw, kw.get("support_hy")
+    pd, hy, rot = "target" in kw, kw.get("support_hy"), model.joint_rot is not None
     launch_kw = dict(support_hy=hy)
     if pd:
         launch_kw.update(target_t=kw["target"].t().contiguous(), power=kw["power"])
@@ -273,11 +500,12 @@ def time_variant(env, variant: str, args, kw) -> dict:
                  TIMED_LAUNCHES)
     wrapper_ms = cuda_ms(lambda: step_kernel.control_step(model, *args, **kw), TIMED_LAUNCHES)
     plain_ms = cuda_ms(lambda: plain_version(model, args, kw), 3)
-    n_stones = args[3].shape[1]
-    flops = step_kernel.control_step_flops(model, n_stones, engine.SUBSTEPS, pd, hy) * NUM_ENVS
-    nbytes = step_kernel.control_step_bytes(model, n_stones, pd) * NUM_ENVS
+    n_stones, batch = args[3].shape[1], args[0].shape[0]
+    flops = step_kernel.control_step_flops(model, n_stones, engine.SUBSTEPS, pd, hy,
+                                           rot) * batch
+    nbytes = step_kernel.control_step_bytes(model, n_stones, pd) * batch
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    got = dict(variant=variant, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+    got = dict(variant=variant, batch=batch, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                flops=flops, bytes=nbytes)
@@ -596,6 +824,252 @@ def card_vs_cpu_training(steps: int = 8, batch: int = 16) -> dict:
     return got
 
 
+def urdf_path() -> dict:
+    """The URDF path: TESTBOT_URDF through urdf.load_urdf, then engine.step
+    at NUM_ENVS from the default pose over one flat stone and the ground
+    (tests/test_urdf.py test_urdf_model_simulates): with zero torques
+    exactly URDF_STEPS K4 launches, then loaded with kp/kd and held at a
+    zero PD target exactly URDF_STEPS K3+K4 launches. The robot must stay
+    finite and land on its spheres above -0.1 m. One more step from the
+    loop's first state, from the state before its step of largest contact
+    force (the landing) and from its last state is held against the plain
+    version (compare_step), outside the counted run."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import engine, step_kernel
+    from steppingstone_tpu_torch.physics.urdf import load_urdf
+
+    t0 = time.perf_counter()
+    models = {"K4": load_urdf(TESTBOT_URDF, root_height=1.2),
+              "K3+K4": load_urdf(TESTBOT_URDF, root_height=1.2, kp=60.0, kd=6.0)}
+    out = {"load_s": time.perf_counter() - t0}
+    for variant, model in models.items():
+        state = engine.default_state(model, NUM_ENVS, "cuda")
+        zeros = torch.zeros(model.njoints, device="cuda")
+        stones = torch.zeros((1, 6), device="cuda")
+        kw = dict(pd_target=zeros) if variant == "K3+K4" else {}
+        # the same operands batched, as control_step takes them
+        rest = (torch.zeros((NUM_ENVS, model.njoints), device="cuda"),
+                stones.expand(NUM_ENVS, 1, 6).contiguous(),
+                torch.full((NUM_ENVS,), 0.3, device="cuda"),
+                torch.ones(NUM_ENVS, dtype=torch.bool, device="cuda"))
+        step_kw = (dict(target=zeros.expand(NUM_ENVS, -1).contiguous(),
+                        power=torch.ones(NUM_ENVS, device="cuda")) if kw else {})
+        states, forces = [state], []
+        torch.cuda.synchronize()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            for _ in range(URDF_STEPS):
+                state, info = engine.step(model, state, zeros, stones, 0.3, True, **kw)
+                states.append(state)
+                forces.append(info.contact_force_sum)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        check_launches(f"URDF {variant}", launches, variant, URDF_STEPS, plain[0])
+        check_finite(f"URDF {variant}", {"q": state.q, "qd": state.qd})
+        forces = torch.stack(forces)
+        landing = int(forces.sum(dim=1).argmax())
+        checks = [compare_step(model, f"URDF {variant} ({name})",
+                               (states[i].q, states[i].qd) + rest, step_kw, step=i)
+                  for name, i in (("first state", 0), ("landing", landing),
+                                  ("last state", URDF_STEPS))]
+        if not checks[1]["envs_in_contact"] > 0:
+            raise AssertionError(f"URDF {variant}: the landing step engages no contact")
+        contact = forces.sum(dim=0)
+        z = state.q[:, 2]
+        got = dict(launches=launches[variant], ms_per_step=1e3 * seconds / URDF_STEPS,
+                   root_z_min=float(z.min()), root_z_max=float(z.max()),
+                   envs_with_contact=float((contact > 0).float().mean()),
+                   joint_rot_rows=int((model.joint_rot != [1, 0, 0, 0]).any(axis=1).sum()),
+                   checks=checks)
+        if not got["root_z_min"] > -0.1 or got["envs_with_contact"] < 1.0:
+            raise AssertionError(f"URDF {variant}: the robot did not land on its spheres: {got}")
+        out[variant] = got
+    print("URDF path:", json.dumps(out), flush=True)
+    return out
+
+
+def rotated_loop(env, variant: str, steps: int) -> dict:
+    """engine.step `steps` times at NUM_ENVS on a rotated robot from the
+    states kernel_inputs makes (the same torques or PD targets held), with
+    the variant's launches counted."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import engine, step_kernel
+
+    model = env.cfg.model
+    args, kw = kernel_inputs(env, NUM_ENVS, seed=11)
+    state = engine.PhysicsState(args[0], args[1])
+    torch.cuda.synchronize()
+    step_kernel.CONTROL_STEP.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, info = engine.step(model, state, *args[2:], env.cfg.contact,
+                                      pd_target=kw.get("target"), pd_power=kw.get("power"),
+                                      support_hy=kw.get("support_hy"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(step_kernel.CONTROL_STEP.launches)
+    check_launches(f"rotated {env.cfg.name} loop", launches, variant, steps, plain[0])
+    check_finite(f"rotated {env.cfg.name} loop", {"q": state.q, "qd": state.qd})
+    out = dict(env=env.cfg.name, support=env.cfg.support, launches=launches[variant],
+               ms_per_step=1e3 * seconds / steps,
+               contact_fraction=float(info.foot_contact.float().mean()))
+    print(f"{variant} path (rotated {env.cfg.name} engine.step loop):", json.dumps(out), flush=True)
+    return out
+
+
+def read_progress(path: str):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def training_loop_path() -> dict:
+    """Trainer.train on the round-5 Walker3D run, from the CLI's parser:
+    UPDATES_FIRST updates, then resume=True to UPDATES_RESUMED, each update
+    400 K2 launches and the test fleet (at update 0) one K2 launch per step
+    of an episode length."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "r5_w3d")
+        for phase, updates, extra in (("first", UPDATES_FIRST, []),
+                                      ("resumed", UPDATES_RESUMED, ["resume=True"])):
+            cfg = parse_cli(R5_W3D + [f"experiment_dir={exp}"] + extra)
+            cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
+            trainer = Trainer(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_kernel.CONTROL_STEP.reset_counts()
+            with counting_plain() as plain:
+                t0 = time.perf_counter()
+                trainer.train()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            launches = dict(step_kernel.CONTROL_STEP.launches)
+            ran = range(trainer.start_update, cfg.num_updates)
+            tests = sum(1 for j in ran if j % cfg.test_interval == 0)
+            steps = len(ran) * cfg.num_steps + tests * trainer.env.cfg.max_episode_steps
+            check_launches(f"training loop ({phase})", launches, "K2", steps, plain[0])
+            out[phase] = dict(
+                launches=launches["K2"], control_steps=steps, start_update=trainer.start_update,
+                seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                update_times=trainer.update_times)
+            if phase == "first":
+                ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+                before = ckpt.restore("latest")
+        if out["resumed"]["start_update"] != UPDATES_FIRST:
+            raise AssertionError(f"the resumed run started at update "
+                                 f"{out['resumed']['start_update']}")
+        # artifacts, progress.csv, finite losses
+        for name in ("configs.json", "run.json", "episodes.csv", "checkpoints/latest.pt",
+                     "checkpoints/best.pt"):
+            if not os.path.exists(os.path.join(exp, name)):
+                raise AssertionError(f"training loop: {name} is missing")
+        header, rows = read_progress(os.path.join(exp, "progress.csv"))
+        if header != PROGRESS_HEADER:
+            raise AssertionError(f"progress.csv header {header}")
+        if [int(r["iter"]) for r in rows] != list(range(1, UPDATES_RESUMED + 1)):
+            raise AssertionError(f"progress.csv rows for updates {[r['iter'] for r in rows]}")
+        for r in rows:
+            for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
+                if not math.isfinite(float(r[col])):
+                    raise AssertionError(f"progress.csv update {r['iter']}: {col} = {r[col]}")
+        if rows[0]["test_mean_rew"] == "" or rows[1]["test_mean_rew"] != "":
+            raise AssertionError("test columns: fresh at update 1, blank at update 2 expected")
+        # the resumed run restored the counter and the curriculum state and
+        # carried them into its own checkpoint
+        ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+        t0 = time.perf_counter()
+        after = ckpt.restore("latest")
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.save("smoke_copy", after)
+        save_s = time.perf_counter() - t0
+        if (before["update"], after["update"]) != (UPDATES_FIRST, UPDATES_RESUMED):
+            raise AssertionError(f"checkpoint updates {before['update']} -> {after['update']}")
+        cur = {k: after["curriculum"][k] for k in ("fixed_level", "fixed_frac", "anneal_start")}
+        if cur != {k: before["curriculum"][k] for k in cur}:
+            raise AssertionError(f"curriculum {before['curriculum']} -> {after['curriculum']}")
+        level = after["env_state"]["cur"]["level"]
+        if not torch.all(level == after["curriculum"]["fixed_frac"]):
+            raise AssertionError("the installed level differs from the curriculum's")
+        out.update(
+            progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "action_loss", "mean_rew",
+                                         "test_mean_rew")} for r in rows],
+            checkpoint_bytes=os.path.getsize(ckpt.path("latest")),
+            checkpoint_save_s=save_s, checkpoint_restore_s=restore_s,
+            curriculum=after["curriculum"])
+    print("K2 path (training loop, round-5 Walker3D):", json.dumps(out), flush=True)
+    return out
+
+
+def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
+    """2 + 2 updates against 4 unbroken (Walker3D, fixed curriculum, no test
+    fleet, as tests/test_runtime.py runs it): every progress.csv column but
+    fps within rel 1e-5 / abs 1e-6. On a miss a second unbroken run tells
+    the card's run-to-run nondeterminism from a resume fault; the largest
+    difference and its source are printed, and only a resume fault fails."""
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    base = ["env_name=Walker3DStepperEnv-v0", f"num_processes={num_envs}",
+            f"episode_steps={num_envs * steps}", "num_tests=0", "use_curriculum=True",
+            "seed=3", "checkpoint_interval=1"]
+    frames = num_envs * steps
+
+    def run(exp, updates, resume=False):
+        Trainer(parse_cli(base + [f"num_frames={updates * frames}", f"experiment_dir={exp}",
+                                  f"resume={resume}"])).train()
+        return read_progress(os.path.join(exp, "progress.csv"))
+
+    def largest_diff(a, b):
+        """(excess over the tolerance, column, update) of the worst miss,
+        or None when every value is within it."""
+        if [r["iter"] for r in a] != [r["iter"] for r in b]:
+            return (math.inf, "iter", None)
+        misses = []
+        for ra, rb in zip(a, b):
+            for col in PROGRESS_HEADER:
+                if col == "fps" or ra[col] == rb[col]:
+                    continue
+                if "" in (ra[col], rb[col]):
+                    misses.append((math.inf, col, ra["iter"]))
+                    continue
+                va, vb = float(ra[col]), float(rb[col])
+                misses.append((abs(va - vb) - (1e-6 + 1e-5 * abs(vb)), col, ra["iter"]))
+        misses = [m for m in misses if m[0] > 0]
+        return max(misses) if misses else None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, unbroken = run(os.path.join(tmp, "a"), 4)
+        run(os.path.join(tmp, "b"), 2)
+        _, resumed = run(os.path.join(tmp, "b"), 4, resume=True)
+        miss = largest_diff(unbroken, resumed)
+        got = dict(rows=len(unbroken), seconds=time.perf_counter() - t0, holds=miss is None)
+        if miss is not None:
+            _, again = run(os.path.join(tmp, "c"), 4)
+            noise = largest_diff(unbroken, again)
+            got.update(largest_excess=miss[0], column=miss[1], iter=miss[2],
+                       source="the resume" if noise is None
+                       else "the card's run-to-run nondeterminism", unbroken_rerun=noise)
+    print("resume is total:", json.dumps(got), flush=True)
+    if not got["holds"] and got["source"] == "the resume":
+        raise AssertionError(f"a resumed run differs from the unbroken one: {got}")
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -605,42 +1079,63 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from steppingstone_tpu_torch.envs import make_env
     from steppingstone_tpu_torch.physics import step_kernel
 
     card = card_line()
     print("card:", card, flush=True)
-    print(f"build: K1, K2, K3, K2+K3 {step_kernel.CONTROL_STEP.build():.2f} s", flush=True)
+    print(f"build: {', '.join(step_kernel.VARIANTS)} "
+          f"{step_kernel.CONTROL_STEP.build():.2f} s", flush=True)
     print_ptxas(step_kernel.CONTROL_STEP.build_log)
 
-    envs = {v: make_env(name, **kw) for v, (name, kw) in VARIANT_ENVS.items()}
-    checks, timings = {}, {}
+    envs = {v: variant_env(v) for v in VARIANT_ENVS}
+    checks, timings, path_timings = {}, {}, {}
     for variant, env in envs.items():
-        results = [check_variant(env, variant, b) for b in CHECK_BATCHES]
-        checks[variant] = [r[0] for r in results]
-        args, kw = results[CHECK_BATCHES.index(NUM_ENVS)][1]
-        timings[variant] = time_variant(env, variant, args, kw)
+        batches = CHECK_BATCHES + PATH_BATCHES.get(variant, ())
+        results = dict(zip(batches, (check_variant(env, variant, b) for b in batches)))
+        checks[variant] = [r[0] for r in results.values()]
+        timings[variant] = time_variant(env, variant, *results[NUM_ENVS][1])
+        path_timings[variant] = {str(b): time_variant(env, variant, *results[b][1])
+                                 for b in PATH_BATCHES.get(variant, ())}
 
     paths = {"K1": rollout_path(envs["K1"], "K1", ROLLOUT_STEPS, detail=True)}
     card_vs_cpu()
     paths["K3"] = rollout_path(envs["K3"], "K3", CASSIE_DISC_STEPS, detail=False)
     paths["K2+K3"] = cassie_training_path()
-    paths["K2"] = walker_plank_path()
+    walker_plank = walker_plank_path()
     card_vs_cpu_training()
+    urdf = urdf_path()
+    paths["K4"], paths["K3+K4"] = urdf["K4"], urdf["K3+K4"]
+    for variant in ("K4", "K3+K4"):
+        checks[variant] += urdf[variant]["checks"]
+    rotated_walker = rotated_loop(envs["K4"], "K4", ROT_WALKER_STEPS)
+    paths["K2+K4"] = rotated_loop(envs["K2+K4"], "K2+K4", ROT_PLANK_STEPS)
+    paths["K2+K3+K4"] = rotated_loop(envs["K2+K3+K4"], "K2+K3+K4", ROT_PLANK_STEPS)
+    loop = training_loop_path()
+    paths["K2"] = dict(launches=loop["first"]["launches"] + loop["resumed"]["launches"])
+    resume_is_total()
+    # a variant's other paths, with their launches
+    other_paths = {
+        "K2": {"Walker3D LargePlank train_iteration": walker_plank["launches"]},
+        "K4": {"rotated Walker3D engine.step loop": rotated_walker["launches"]},
+    }
 
     kernels = []
-    for variant in VARIANT_ENVS:
+    for variant, (pd, plank, rot) in step_kernel.VARIANTS.items():
         c, t = checks[variant], timings[variant]
         kernels.append(dict(
             name=f"control_step ({variant})",
             route="cuda",
             source="steppingstone_tpu_torch/csrc/control_step.cu",
             replaces="steppingstone_tpu/physics/pallas_step.py:733",
-            specialization=SPECIALIZATION[variant],
+            specialization=f"pd={pd}, support_hy={1.5 if plank else None}, "
+                           f"joint_rot={'set' if rot else None}",
             launches=paths[variant]["launches"],
+            other_paths=other_paths.get(variant, {}),
             max_abs_err=max(max(x["max_q_err"], x["max_qd_err"]) for x in c),
             max_q_err=max(x["max_q_err"] for x in c),
             max_qd_err=max(x["max_qd_err"] for x in c),
+            limit_flips=sum(x["limit_flips"] for x in c),
+            checked_batches=[x["batch"] for x in c],
             ms=t["ms"],
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"],
@@ -650,6 +1145,9 @@ def main() -> int:
             wrapper_ms=t["wrapper_ms"],
             flops=t["flops"],
             bytes=t["bytes"],
+            # at the batch sizes of its path (the 4096-env numbers above)
+            path_batches={b: {k: p[k] for k in ("ms", "bound_ms", "plain_ms")}
+                          for b, p in path_timings[variant].items()},
         ))
     print(json.dumps({"kernels": kernels}))
     print("card:", card)

@@ -1,21 +1,30 @@
-// Kernels K1, K2, K3 and K2+K3: one 60 Hz control step of the articulated-
-// body physics, for a batch of independent envs, on NVIDIA Hopper (sm_90a).
+// Kernels K1..K4: one 60 Hz control step of the articulated-body physics,
+// for a batch of independent envs, on NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel steppingstone_tpu/physics/pallas_step.py
-// (`build_batched_step`, the pallas_call at pallas_step.py:733) for models
-// without rotated joint frames, in four compile-time specializations of one
-// body, `control_step_kernel<PD, PLANK>`:
-//   K1    <false, false>  torque actuation, disc support
-//   K2    <false, true>   plank support (`support_hy`, pallas_step.py:420-431,
-//                         648-657): each stone's in-plane axes
-//                         ux = normalize(h - (h.n) n), uy = n x ux once per
-//                         control step, and the box bound |x_l| <= r + margin,
-//                         |y_l| <= hy + margin in place of the disc bound
-//   K3    <true, false>   stable PD (`pd=True`, pallas_step.py:474-488):
-//                         every substep tau_pd = clip(kp (target - q) - kd qd,
-//                         +-limit) * power on joints with kp or kd nonzero,
-//                         and power kd, power kp on the implicit D, K diagonals
-//   K2+K3 <true, true>    both (Cassie on planks)
+// (`build_batched_step`, the pallas_call at pallas_step.py:733) in all its
+// specializations, as compile-time variants of one body,
+// `control_step_kernel<PD, PLANK, ROT>`:
+//   K1    <false, false, false>  torque actuation, disc support
+//   K2    <false, true, false>   plank support (`support_hy`, pallas_step.py:
+//                                420-431, 648-657): each stone's in-plane axes
+//                                ux = normalize(h - (h.n) n), uy = n x ux once
+//                                per control step, and the box bound
+//                                |x_l| <= r + margin, |y_l| <= hy + margin in
+//                                place of the disc bound
+//   K3    <true, false, false>   stable PD (`pd=True`, pallas_step.py:474-488):
+//                                every substep tau_pd = clip(kp (target - q) -
+//                                kd qd, +-limit) * power on joints with kp or kd
+//                                nonzero, and power kd, power kp on the
+//                                implicit D, K diagonals
+//   K4    <false, false, true>   rotated joint frames (`model.joint_rot`, the
+//                                URDF <origin rpy>, pallas_step.py:290-305,
+//                                357): the hinge frame is
+//                                quat[p] * jrot[i] * axis_angle(axis[i], q_j);
+//                                rows that are exactly the identity skip the
+//                                product (no snapping: the Pallas kernel's
+//                                snap moves values by < 1e-12, below fp32)
+//   and their combinations K2+K3, K2+K4, K3+K4, K2+K3+K4.
 // It computes the same function as the plain PyTorch version
 // `engine._step_scan` of this package and follows that version's order of
 // operations: stones are tested in order and the ground last, with the
@@ -38,6 +47,10 @@
 // memory; with one thread per env, 4096 envs fill only ~1 warp per SM
 // scheduler, so it is latency-bound and far from that floor. A later
 // version can give each env a warp, or fold the model into the code.
+// The fixed joint rotations (K4) stay out of the struct, which would pass
+// the classic 4 KB kernel-parameter limit with them: they are a small
+// (NB, 4) device array read with uniform __ldg loads, and a bit mask
+// `rot_rows` marks the rows that are not the identity.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,10 +127,12 @@ __device__ __forceinline__ void inertia_mul(float m, const float* c, const float
 }
 
 // PD: stable-PD actuation toward target_in (NJ, B) scaled by power_in (B,);
-// PLANK: box support with lateral bound hy_margin (= support_hy + margin).
-template <bool PD, bool PLANK>
+// PLANK: box support with lateral bound hy_margin (= support_hy + margin);
+// ROT: fixed joint rotations jrot_in (NB, 4) wxyz on the rows set in rot_rows.
+template <bool PD, bool PLANK, bool ROT>
 __global__ void __launch_bounds__(128)
 control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_margin,
+                    unsigned int rot_rows, const float* __restrict__ jrot_in,
                     const float* __restrict__ q_in, const float* __restrict__ qd_in,
                     const float* __restrict__ tau_in, const float* __restrict__ target_in,
                     const float* __restrict__ power_in, const float* __restrict__ st_in,
@@ -191,7 +206,15 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
       float sh, ch;
       sincosf(0.5f * q[6 + i], &sh, &ch);
       const float qa[4] = {ch, m.axis[i][0] * sh, m.axis[i][1] * sh, m.axis[i][2] * sh};
-      qmul(quat[p], qa, quat[i]);
+      float qp[4] = {quat[p][0], quat[p][1], quat[p][2], quat[p][3]};
+      if constexpr (ROT) {
+        if ((rot_rows >> i) & 1u) {  // fixed frame rotation before the hinge
+          const float jr[4] = {__ldg(jrot_in + 4 * i), __ldg(jrot_in + 4 * i + 1),
+                               __ldg(jrot_in + 4 * i + 2), __ldg(jrot_in + 4 * i + 3)};
+          qmul(quat[p], jr, qp);
+        }
+      }
+      qmul(qp, qa, quat[i]);
     }
     for (int i = 0; i < NB; ++i) {
       const float w = quat[i][0], x = quat[i][1], y = quat[i][2], z = quat[i][3];
@@ -464,16 +487,17 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
   info_out[(6 + NJ) * B + e] = fsum;
 }
 
-template <bool PD, bool PLANK>
-static void launch(const ModelData* model, int B, int S, float hy_margin, const float* q,
-                   const float* qd, const float* tau, const float* target, const float* power,
-                   const float* stones, const float* stone_radius, const float* use_ground,
-                   float* q_out, float* qd_out, float* info_out, cudaStream_t stream) {
+template <bool PD, bool PLANK, bool ROT>
+static void launch(const ModelData* model, int B, int S, float hy_margin, unsigned int rot_rows,
+                   const float* jrot, const float* q, const float* qd, const float* tau,
+                   const float* target, const float* power, const float* stones,
+                   const float* stone_radius, const float* use_ground, float* q_out,
+                   float* qd_out, float* info_out, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  control_step_kernel<PD, PLANK><<<blocks, threads, 0, stream>>>(
-      *model, B, S, hy_margin, q, qd, tau, target, power, stones, stone_radius, use_ground,
-      q_out, qd_out, info_out);
+  control_step_kernel<PD, PLANK, ROT><<<blocks, threads, 0, stream>>>(
+      *model, B, S, hy_margin, rot_rows, jrot, q, qd, tau, target, power, stones, stone_radius,
+      use_ground, q_out, qd_out, info_out);
 }
 
 extern "C" {
@@ -481,27 +505,29 @@ extern "C" {
 // sizeof(ModelData), so the binding can check that its mirror matches
 int control_step_model_size(void) { return (int)sizeof(ModelData); }
 
-// Launch the (pd, plank) variant on `stream`; target and power are read
-// only when pd != 0, hy_margin only when plank != 0. Returns
-// cudaGetLastError() (0 = launched).
-int control_step_launch(const ModelData* model, int B, int S, int pd, int plank,
-                        float hy_margin, const float* q, const float* qd, const float* tau,
-                        const float* target, const float* power, const float* stones,
-                        const float* stone_radius, const float* use_ground, float* q_out,
-                        float* qd_out, float* info_out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (pd && plank)
-    launch<true, true>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
-                       stone_radius, use_ground, q_out, qd_out, info_out, st);
-  else if (pd)
-    launch<true, false>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
-                        stone_radius, use_ground, q_out, qd_out, info_out, st);
-  else if (plank)
-    launch<false, true>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
-                        stone_radius, use_ground, q_out, qd_out, info_out, st);
-  else
-    launch<false, false>(model, B, S, hy_margin, q, qd, tau, target, power, stones,
-                         stone_radius, use_ground, q_out, qd_out, info_out, st);
+// Launch the (pd, plank, rot) variant on `stream`; target and power are
+// read only when pd != 0, hy_margin only when plank != 0, rot_rows and
+// jrot (NB, 4) only when rot != 0. Returns cudaGetLastError() (0 = launched).
+int control_step_launch(const ModelData* model, int B, int S, int pd, int plank, int rot,
+                        float hy_margin, unsigned int rot_rows, const float* jrot,
+                        const float* q, const float* qd, const float* tau, const float* target,
+                        const float* power, const float* stones, const float* stone_radius,
+                        const float* use_ground, float* q_out, float* qd_out, float* info_out,
+                        void* stream) {
+#define CONTROL_STEP_ARGS                                                                    \
+  model, B, S, hy_margin, rot_rows, jrot, q, qd, tau, target, power, stones, stone_radius, \
+      use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
+  switch ((pd ? 4 : 0) | (plank ? 2 : 0) | (rot ? 1 : 0)) {
+    case 0: launch<false, false, false>(CONTROL_STEP_ARGS); break;
+    case 1: launch<false, false, true>(CONTROL_STEP_ARGS); break;
+    case 2: launch<false, true, false>(CONTROL_STEP_ARGS); break;
+    case 3: launch<false, true, true>(CONTROL_STEP_ARGS); break;
+    case 4: launch<true, false, false>(CONTROL_STEP_ARGS); break;
+    case 5: launch<true, false, true>(CONTROL_STEP_ARGS); break;
+    case 6: launch<true, true, false>(CONTROL_STEP_ARGS); break;
+    default: launch<true, true, true>(CONTROL_STEP_ARGS); break;
+  }
+#undef CONTROL_STEP_ARGS
   return (int)cudaGetLastError();
 }
 

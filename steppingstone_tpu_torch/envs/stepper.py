@@ -505,6 +505,19 @@ class StepperEnv:
         )
         return state._replace(cur=cur)
 
+    def update_assist(self, state: EnvState, assist) -> EnvState:
+        """Set only the support-geometry assist level."""
+        return state._replace(cur=state.cur._replace(
+            assist=torch.full_like(state.cur.assist, assist)))
+
+    def update_specialist(self, state: EnvState, k) -> EnvState:
+        """Restrict stone sampling to difficulty band k (the specialist
+        curriculum): the band's uniform grid distribution, grid mode on."""
+        prob = terr.specialist_band_prob(k, state.cur.sample_prob.device)
+        return state._replace(cur=state.cur._replace(
+            sample_prob=prob.expand_as(state.cur.sample_prob).clone(),
+            use_prob=torch.ones_like(state.cur.use_prob)))
+
     def get_mirror_indices(self):
         """(neg_obs, right_obs, left_obs, neg_act, right_act, left_act): the
         Walker layout, or for clocked envs the Cassie layout."""

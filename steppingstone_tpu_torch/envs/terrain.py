@@ -66,6 +66,18 @@ def level_scale(level: torch.Tensor) -> torch.Tensor:
     return torch.clamp(level.to(torch.float32) / (N_LEVELS - 1), 0.0, 1.0)
 
 
+def specialist_band_prob(k: int, device="cpu") -> torch.Tensor:
+    """Uniform distribution (GRID, GRID) over the difficulty band (annulus)
+    k of the grid: cells whose Chebyshev ring index max(|yi-5|, |pi-5|) ==
+    k, with k clipped to [0, N_LEVELS - 1] (the specialist curriculum's
+    `update_specialist(k)`)."""
+    c = (GRID - 1) // 2
+    yi, pi = np.meshgrid(np.arange(GRID), np.arange(GRID), indexing="ij")
+    ring = np.maximum(np.abs(yi - c), np.abs(pi - c))
+    sel = (ring == min(max(int(k), 0), N_LEVELS - 1)).astype(np.float32)
+    return torch.as_tensor(sel / np.sum(sel, dtype=np.float32), device=device)
+
+
 def draw_stones(cur: CurriculumState, k: int, generator: torch.Generator | None = None) -> StoneDraws:
     """Fresh draws for k placements per env from `generator`."""
     B, dev = cur.level.shape[0], cur.level.device

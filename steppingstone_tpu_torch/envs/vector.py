@@ -46,3 +46,9 @@ class VecEnv:
 
     def update_curriculum(self, state: EnvState, level, assist=None) -> EnvState:
         return self.env.update_curriculum(state, level, assist)
+
+    def update_assist(self, state: EnvState, assist) -> EnvState:
+        return self.env.update_assist(state, assist)
+
+    def update_specialist(self, state: EnvState, k) -> EnvState:
+        return self.env.update_specialist(state, k)

@@ -2,10 +2,11 @@
 (port of steppingstone_tpu/physics/engine.py).
 
 One 60 Hz control step = SUBSTEPS x 240 Hz substeps. `_step_scan` is the
-plain batched PyTorch version, with optional stable-PD actuation (`pd`) and
-plank support (`support_hy`); `step` is the entry point, which runs the
-hand-written CUDA kernel for CUDA tensors (K1 torque/disc, K2 plank, K3
-stable PD, or K2+K3) and `_step_scan` for CPU tensors
+plain batched PyTorch version, with optional stable-PD actuation (`pd`),
+plank support (`support_hy`) and rotated joint frames (a model with
+`joint_rot`); `step` is the entry point, which runs the hand-written CUDA
+kernel for CUDA tensors (K1 torque/disc, K2 plank, K3 stable PD, K4
+rotated frames, or their combination) and `_step_scan` for CPU tensors
 (physics/step_kernel.py).
 """
 
@@ -179,8 +180,8 @@ def _step_scan(
     support_hy=None,             # None: disc support; a float: plank half-width
 ):
     """One control step = `substeps` dynamics substeps: the plain PyTorch
-    version of kernels K1 (torque, disc), K2 (plank), K3 (stable PD) and
-    K2+K3. Contact flags/forces are OR/max-aggregated over substeps so
+    version of kernels K1 (torque, disc), K2 (plank), K3 (stable PD), K4
+    (rotated joint frames, from the model) and their combinations. Contact flags/forces are OR/max-aggregated over substeps so
     brief touchdowns are not missed."""
     B = state.q.shape[0]
     acc = StepInfo(
@@ -220,8 +221,8 @@ def step(
     """One 60 Hz control step for a batch of envs. CUDA tensors run the
     kernel (csrc/control_step.cu) in its specialization: K1 torque/disc,
     K2 with `support_hy` (plank), K3 with `pd_target` (stable PD toward the
-    target, torques scaled by `pd_power`, default 1), K2+K3 with both; CPU
-    tensors run `_step_scan`. Unbatched tau_j (NJ,), pd_target (NJ,),
+    target, torques scaled by `pd_power`, default 1), K4 for a model with
+    `joint_rot`, or their combination; CPU tensors run `_step_scan`. Unbatched tau_j (NJ,), pd_target (NJ,),
     stone_radius, use_ground and pd_power are broadcast over the batch."""
     from steppingstone_tpu_torch.physics import step_kernel  # it imports this module
 

@@ -29,13 +29,11 @@ class Kin(NamedTuple):
 
 
 def forward_kinematics(model: RobotModel, q: torch.Tensor) -> Kin:
-    if model.joint_rot is not None:
-        raise NotImplementedError(
-            "rotated joint frames (URDF models) need kernel K4, not ported yet"
-        )
     dev = q.device
     anchor = tensor(model, "joint_anchor", dev)
     ax_local = tensor(model, "joint_axis", dev)
+    # fixed parent -> joint frame rotations (URDF <origin rpy>), or None
+    jrot = None if model.joint_rot is None else tensor(model, "joint_rot", dev)
     qj = q[:, 7:]
 
     pos = [q[:, 0:3]]
@@ -44,7 +42,8 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> Kin:
     for i in range(1, model.nbodies):
         p = int(model.parent[i])
         pos.append(pos[p] + qt.rotate(quat[p], anchor[i]))
-        q_i = qt.mul(quat[p], qt.from_axis_angle(ax_local[i], qj[:, i - 1]))
+        q_parent = quat[p] if jrot is None else qt.mul(quat[p], jrot[i])
+        q_i = qt.mul(q_parent, qt.from_axis_angle(ax_local[i], qj[:, i - 1]))
         quat.append(q_i)
         # rotating about its own axis leaves it fixed in the body frame
         axis.append(qt.rotate(q_i, ax_local[i]))

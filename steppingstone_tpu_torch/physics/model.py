@@ -206,6 +206,23 @@ def build_model(
     )
 
 
+def with_rotated_frames(model: RobotModel, seed: int) -> RobotModel:
+    """`model` with fixed joint rotations (the URDF `<origin rpy>` case)
+    drawn from `seed`: 0.1-0.4 rad about random unit axes on every row but
+    each fourth, which stays the identity (row 0, the root, among them).
+    Exercises the rotated-frame kinematics and kernel K4 on the built-in
+    robots at full width, as the JAX package's kernel tests do."""
+    rng = np.random.default_rng(seed)
+    nb = model.nbodies
+    axis = rng.standard_normal((nb, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    half = 0.5 * rng.uniform(0.1, 0.4, nb)
+    rot = np.concatenate([np.cos(half)[:, None], np.sin(half)[:, None] * axis], axis=1)
+    rot[::4] = (1.0, 0.0, 0.0, 0.0)
+    return dataclasses.replace(model, name=f"{model.name}_rotated",
+                               joint_rot=rot.astype(np.float32))
+
+
 _TENSORS: dict = {}
 
 

@@ -1,15 +1,15 @@
-"""Kernels K1, K2, K3 and K2+K3, the fused 60 Hz control step on the card,
-and their wrapper.
+"""Kernels K1..K4, the fused 60 Hz control step on the card, and their
+wrapper.
 
 The kernel (csrc/control_step.cu, CUDA C++ for sm_90a) replaces the TPU
-kernel steppingstone_tpu/physics/pallas_step.py `build_batched_step` in its
-specializations without rotated joint frames, as compile-time variants of
-one body:
+kernel steppingstone_tpu/physics/pallas_step.py `build_batched_step` in
+each of its specializations, as compile-time variants of one body:
 
 - K1: torque actuation, disc support (pd=False, support_hy=None);
 - K2: plank support (support_hy=<float>);
 - K3: stable PD (pd=True, a per-joint target and a per-env power);
-- K2+K3: both (Cassie on planks).
+- K4: rotated joint frames (a model with `joint_rot`, from a URDF);
+- their combinations K2+K3, K2+K4, K3+K4 and K2+K3+K4.
 
 It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
@@ -50,13 +50,15 @@ SOURCE = PACKAGE_DIR / "csrc" / "control_step.cu"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# (pd, plank) of each variant, as in the kernel's template arguments
-VARIANTS = {"K1": (False, False), "K2": (False, True), "K3": (True, False),
-            "K2+K3": (True, True)}
+# (pd, plank, rot) of each variant, as in the kernel's template arguments
+VARIANTS = {"K1": (False, False, False), "K2": (False, True, False),
+            "K3": (True, False, False), "K2+K3": (True, True, False),
+            "K4": (False, False, True), "K2+K4": (False, True, True),
+            "K3+K4": (True, False, True), "K2+K3+K4": (True, True, True)}
 
 
-def variant(pd: bool, plank: bool) -> str:
-    return {v: k for k, v in VARIANTS.items()}[(bool(pd), bool(plank))]
+def variant(pd: bool, plank: bool, rot: bool) -> str:
+    return {v: k for k, v in VARIANTS.items()}[(bool(pd), bool(plank), bool(rot))]
 
 _f, _i = ctypes.c_float, ctypes.c_int
 
@@ -88,10 +90,6 @@ class _ModelData(ctypes.Structure):
 
 def check_model(model: RobotModel, n_stones: int) -> None:
     """Raise if the kernel cannot take this model or stone count."""
-    if model.joint_rot is not None:
-        raise NotImplementedError(
-            "rotated joint frames need kernel K4 (pallas_step.py jrot), not ported yet"
-        )
     if model.nbodies > MAXB or model.ncontacts > MAXC or n_stones > MAXS:
         raise ValueError(
             f"{model.name}: {model.nbodies} bodies, {model.ncontacts} contacts, "
@@ -130,6 +128,16 @@ def _model_data(model: RobotModel, cparams: ContactParams, substeps: int) -> _Mo
     return md
 
 
+def _joint_rotations(model: RobotModel, device):
+    """K4's operands: the (NB, 4) fixed joint rotations as a float32 tensor
+    on `device`, and the bit mask of the rows that are not exactly the
+    identity (those rows skip the product; nothing is snapped)."""
+    rot = np.asarray(model.joint_rot, np.float32)
+    rows = sum(1 << i for i in range(model.nbodies)
+               if not np.array_equal(rot[i], np.array([1, 0, 0, 0], np.float32)))
+    return torch.as_tensor(rot, device=device).contiguous(), rows
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
@@ -139,13 +147,14 @@ def _nvcc() -> str:
 
 class ControlStepKernel:
     """Builds, loads and launches the control-step kernels; `launches`
-    counts the launches of each variant (K1, K2, K3, K2+K3)."""
+    counts the launches of each variant (`VARIANTS`)."""
 
     def __init__(self):
         self.reset_counts()
         self.build_log = ""  # ptxas's register / local-memory report of the last build
         self._lib = None
         self._models: dict = {}
+        self._rotations: dict = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
@@ -177,8 +186,8 @@ class ControlStepKernel:
             lib.control_step_launch.restype = ctypes.c_int
             lib.control_step_launch.argtypes = (
                 [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float]
-                + [ctypes.c_void_p] * 12
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint]
+                + [ctypes.c_void_p] * 13
             )
             size = lib.control_step_model_size()
             if size != ctypes.sizeof(_ModelData):
@@ -199,31 +208,38 @@ class ControlStepKernel:
         layout, env index fastest: q_t (nq, B), qd_t (ndof, B), tau_t
         (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
         float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
-        for planks `support_hy` (a float). Returns new (nq, B), (ndof, B)
-        and (NJ + 7, B) tensors. Callers check inputs (`control_step`
-        does)."""
+        for planks `support_hy` (a float); a model with `joint_rot` runs a
+        K4 variant. Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors.
+        Callers check inputs (`control_step` does)."""
         self.build()
         key = (model, cparams, substeps)
         md = self._models.get(key)
         if md is None:
             md = self._models[key] = _model_data(model, cparams, substeps)
         pd, plank = target_t is not None, support_hy is not None
+        rot = model.joint_rot is not None
+        jrot, rot_rows = None, 0
+        if rot:
+            key = (model, q_t.device)
+            if key not in self._rotations:
+                self._rotations[key] = _joint_rotations(model, q_t.device)
+            jrot, rot_rows = self._rotations[key]
         B, S = q_t.shape[1], stones_t.shape[0] // 6
         outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
                 for n in (model.nq, model.ndof, model.njoints + 7)]
         ptr = lambda t: None if t is None else t.data_ptr()
-        ins = (q_t, qd_t, tau_t, target_t, power, stones_t, stone_radius, use_ground)
+        ins = (jrot, q_t, qd_t, tau_t, target_t, power, stones_t, stone_radius, use_ground)
         # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
         # plain version compares against the same sum
         hy_margin = float(support_hy) + cparams.margin if plank else 0.0
         with torch.cuda.device(q_t.device):
             stream = torch.cuda.current_stream(q_t.device).cuda_stream
             err = self._lib.control_step_launch(
-                ctypes.byref(md), B, S, int(pd), int(plank), hy_margin,
+                ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
                 *(ptr(t) for t in ins + tuple(outs)), stream)
         if err != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
-        self.launches[variant(pd, plank)] += 1
+        self.launches[variant(pd, plank, rot)] += 1
         return outs
 
 
@@ -290,7 +306,8 @@ def control_step(
 ):
     """One control step for B envs -> (q', qd', engine.StepInfo). CPU
     tensors run the plain version; CUDA tensors run K1, K2 (support_hy),
-    K3 (target) or K2+K3. Operands with no batch axis are broadcast."""
+    K3 (target), K4 (a model with joint_rot) or their combination.
+    Operands with no batch axis are broadcast."""
     B, dev = q.shape[0], q.device
     tau = _batched(tau, B, 1, torch.float32, dev)
     stones = _batched(stones, B, 2, torch.float32, dev)
@@ -335,7 +352,7 @@ def control_step_bytes(model: RobotModel, n_stones: int, pd: bool = False) -> in
 
 
 def control_step_flops(model: RobotModel, n_stones: int, substeps: int,
-                       pd: bool = False, support_hy=None) -> int:
+                       pd: bool = False, support_hy=None, rot: bool = False) -> int:
     """fp32 operations one env's control step needs, counted section by
     section from csrc/control_step.cu: each add, multiply, divide,
     min/max, abs, sqrt, rsqrt and sin/cos counts one (an FMA counts two).
@@ -344,7 +361,9 @@ def control_step_flops(model: RobotModel, n_stones: int, substeps: int,
     the kernel's dense loops do more. Stable PD adds the per-joint torque
     and the two diagonal terms on every joint with a gain; planks add each
     stone's in-plane axes (once per control step) and the second bound of
-    the box test."""
+    the box test; rotated frames (`rot`, the model's `joint_rot`) add one
+    Hamilton product (16 multiplies, 12 adds) per row that is not the
+    identity."""
     nb, nj, nd, nc, S = model.nbodies, model.njoints, model.ndof, model.ncontacts, n_stones
     mask = _ancestor_mask(model)
     pairs = int(mask.sum())                      # nonzeros of the lower triangle
@@ -370,6 +389,8 @@ def control_step_flops(model: RobotModel, n_stones: int, substeps: int,
             chol += 2 * sum(1 for i in col if i >= k)
     solves = 2 * (2 * (pairs - nd) + nd)
     euler = 3 * nd + 40 + 2 * nc
+    if rot:
+        fk += 28 * bin(_joint_rotations(model, "cpu")[1]).count("1")
     per_substep = fk + vel + contact + joints + crba + rnea + nd * 5 + chol + solves + euler
     # stone normals (7 per stone); plank axes: heading cos/sin (2), h.n (5),
     # projection (6), norm and scale (9), n x ux (9)

@@ -1,7 +1,7 @@
-"""Typed experiment configuration with `k=v` CLI overrides (own copy of
-steppingstone_tpu/runtime/config.py: same keys, defaults, derived values
-and checks; the experiment directory and its configs.json / run.json come
-with the training loop).
+"""Typed experiment configuration with `k=v` CLI overrides and the
+experiment directory (own copy of steppingstone_tpu/runtime/config.py:
+same keys, defaults, derived values and checks, the same configs.json and
+run.json).
 
 Re-design of the reference's sacred setup (`playground/train.py:35-87`,
 `common/sacred_utils.py:19-61`): same `python -m ... with`-style `k=v`
@@ -11,6 +11,11 @@ override grammar (the `with` word is optional).
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import json
+import os
+import platform
+import subprocess
 import sys
 from typing import Optional
 
@@ -132,7 +137,7 @@ class TrainConfig:
     # extras of the JAX package (no reference analog), kept so both read
     # the same keys; the port runs on one device, so mesh_devices is inert
     mesh_devices: int = 0               # 0 = all visible devices
-    checkpoint_async: bool = True
+    checkpoint_async: bool = True       # inert: the port writes checkpoints in line
     checkpoint_interval: int = 10       # save 'latest' every N updates
     episode_log: bool = False           # Monitor-style episodes.csv
     profile_dir: Optional[str] = None   # profiler trace output
@@ -274,3 +279,54 @@ def _annotation_of(name: str):
     ann = TrainConfig.__annotations__[name]
     return {"str": str, "int": int, "float": float, "bool": bool,
             "Optional[str]": Optional[str]}.get(ann, str)
+
+
+def _git_info():
+    try:
+        commit = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True, timeout=5,
+            cwd=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        ).stdout.strip()
+        return {"commit": commit}
+    except (OSError, subprocess.SubprocessError):
+        return {}
+
+
+def init_experiment(cfg: TrainConfig) -> str:
+    """Create the experiment dir and write configs.json / run.json
+    (reference `sacred_utils.py:42-55`). Returns the experiment dir.
+
+    Replicate seeding follows the reference: seed += (replicate_num - 1) *
+    num_processes (`sacred_utils.py:34`).
+    """
+    cfg.seed = cfg.seed + (cfg.replicate_num - 1) * cfg.num_processes
+    os.makedirs(cfg.experiment_dir, exist_ok=True)
+    # stamp effective/derived values and the keys the enabled strategies
+    # ignore, so the snapshot is self-describing
+    snapshot = dataclasses.asdict(cfg)
+    snapshot["_effective"] = {
+        "seed": cfg.seed,  # after the replicate offset
+        "num_steps": cfg.num_steps,
+        "num_mini_batch": cfg.num_mini_batch,
+        "num_updates": cfg.num_updates,
+    }
+    snapshot["_inert_keys"] = cfg.inert_keys()
+    with open(os.path.join(cfg.experiment_dir, "configs.json"), "w") as f:
+        json.dump(snapshot, f, indent=2, sort_keys=True)
+    divergences = cfg.reference_divergences()
+    for k, (ours, ref) in divergences.items():
+        print(f"config divergence from the reference's active path: {k}={ours} "
+              f"(reference: {ref})", flush=True)
+    run_meta = {
+        "start_time": datetime.datetime.now().isoformat(),
+        "host": platform.node(),
+        "python": sys.version,
+        "argv": sys.argv,
+        "reference_divergences": {
+            k: {"ours": v[0], "reference": v[1]} for k, v in divergences.items()
+        },
+        **_git_info(),
+    }
+    with open(os.path.join(cfg.experiment_dir, "run.json"), "w") as f:
+        json.dump(run_meta, f, indent=2)
+    return cfg.experiment_dir

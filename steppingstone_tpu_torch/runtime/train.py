@@ -1,32 +1,48 @@
-"""The training iteration (port of steppingstone_tpu/runtime/train.py,
-`Trainer` up to `_train_iteration_impl`).
+"""The training loop (port of steppingstone_tpu/runtime/train.py).
 
 One iteration: rollout (T control steps of N envs, each one launch of the
 control-step kernel on the card) -> bootstrap value -> GAE with
 time-limit `bad_masks` -> normalized advantages -> `ppo_epoch` x
 `num_mini_batch` PPO steps (mirror-augmented with `use_mirror`); value-only
-iterations act deterministically and step at 10x lr.
+iterations act deterministically and step at 10x lr with their own Adam
+state.
 
-The optimizer state comes from `agents.ppo.init_optimizer(policy)`. The
-host loop `Trainer.train` (curricula, test fleet, checkpoints,
-progress.csv) is not ported yet (ROADMAP item 8).
+`Trainer.train` is the host loop around it, step for step the JAX
+package's: the LR schedule and warm-up, the fixed curriculum and the
+specialist schedule, the deterministic test fleet every `test_interval`
+updates, `advance_on_test`, the logstd re-inflation and anneal, the NaN
+watchdog, checkpoints (numbered, latest, best) with full resume,
+episodes.csv and progress.csv, and a torch.profiler trace of updates
+10-13. The value-based curricula (adaptive and threshold sampling) are
+ROADMAP item 12 and raise.
+
+Run:  python -m steppingstone_tpu_torch.runtime.train [with] k=v ...
+(on the card; `main(argv, device="cpu")` runs it on the CPU).
 """
 
 from __future__ import annotations
 
+import math
+import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from steppingstone_tpu_torch.agents.gae import compute_gae, normalize_advantages
 from steppingstone_tpu_torch.agents.mirror import MirrorSpec
-from steppingstone_tpu_torch.agents.networks import ActorCritic
-from steppingstone_tpu_torch.agents.ppo import PPOConfig, ppo_update
-from steppingstone_tpu_torch.agents.rollout import collect_rollout
+from steppingstone_tpu_torch.agents.networks import ActorCritic, cap_logstd, reinflate_logstd
+from steppingstone_tpu_torch.agents.ppo import PPOConfig, init_optimizer, ppo_update
+from steppingstone_tpu_torch.agents.rollout import EpisodeStats, collect_rollout, evaluate
 from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.envs.vector import VecEnv
-from steppingstone_tpu_torch.runtime.config import TrainConfig
+from steppingstone_tpu_torch.runtime import curriculum as curr
+from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+from steppingstone_tpu_torch.runtime.config import TrainConfig, init_experiment, parse_cli
+from steppingstone_tpu_torch.runtime.loggers import ConsoleCSVLogger
+from steppingstone_tpu_torch.runtime.schedules import exponential_decay, linear_decay
 
 
 class IterationDraws(NamedTuple):
@@ -39,8 +55,10 @@ class IterationDraws(NamedTuple):
 
 
 class Trainer:
-    """Wires config -> env fleet -> networks -> PPO on one device (`None`
-    means the card)."""
+    """Wires config -> env fleet (and test fleet) -> networks -> PPO on one
+    device (`None` means the card). Its generators: the fleet's (`venv`,
+    seeded cfg.seed; env draws and action noise), the test fleet's
+    (cfg.seed + 1) and the minibatch permutations' (cfg.seed)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
         cfg.validate()
@@ -51,6 +69,8 @@ class Trainer:
             env_kw["stall_timeout"] = cfg.stall_timeout
         self.env = make_env(cfg.env_name, device=self.device, **env_kw)
         self.venv = VecEnv(self.env, cfg.num_processes, device=self.device, seed=cfg.seed)
+        self.test_venv = (VecEnv(self.env, cfg.num_tests, device=self.device, seed=cfg.seed + 1)
+                          if cfg.num_tests > 0 else None)
         self.ppo_cfg = PPOConfig(
             clip_param=cfg.clip_param,
             ppo_epoch=cfg.ppo_epoch,
@@ -66,6 +86,8 @@ class Trainer:
         # minibatch permutations
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self.start_update = 0   # where the last `train` began (after a resume)
+        self.update_times: list = []  # per update: rollout / update / test fleet seconds
 
     def init_params(self, generator: torch.Generator | None = None) -> ActorCritic:
         """A fresh actor-critic (init drawn from `generator`, a CPU
@@ -121,3 +143,306 @@ class Trainer:
                                                          value_only, draws)
         opt_state, metrics = self.update(policy, opt_state, batch, lr, value_only, draws.perms)
         return policy, opt_state, env_state, obs, stats, metrics, aux
+
+    # ------------------------------------------------------------------
+    def _generators(self) -> dict:
+        gens = {"venv": self.venv.generator, "trainer": self.generator}
+        if self.test_venv is not None:
+            gens["test_venv"] = self.test_venv.generator
+        return gens
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _test_eval(self, policy: ActorCritic, test_state, test_obs):
+        """The deterministic test fleet over one episode length."""
+        return evaluate(self.test_venv, policy, test_state, test_obs,
+                        self.env.cfg.max_episode_steps)
+
+    def train(self) -> ActorCritic:
+        """The training run `cfg` describes; returns the trained policy."""
+        cfg = self.cfg
+        if cfg.use_adaptive_sampling or cfg.use_threshold_sampling:
+            raise NotImplementedError(
+                "adaptive and threshold sampling (the value-based curricula) are not "
+                "ported yet: ROADMAP item 12")
+        exp_dir = init_experiment(cfg)
+        # the replicate offset moved cfg.seed: every generator starts from it
+        self.venv.generator.manual_seed(cfg.seed)
+        self.generator.manual_seed(cfg.seed)
+        if self.test_venv is not None:
+            self.test_venv.generator.manual_seed(cfg.seed + 1)
+
+        policy = self.init_params()
+        opt_state = init_optimizer(policy)
+        # value-only updates get their OWN Adam moments, like the reference's
+        # separate `value_optimizer` (`algorithms/ppo.py:36-38`)
+        value_opt_state = init_optimizer(policy)
+        env_state, obs = self.venv.reset()
+        if cfg.use_phase_mirror:
+            env_state = self.venv.set_mirror(env_state, True)
+        test_state = test_obs = None
+        if self.test_venv is not None:
+            test_state, test_obs = self.test_venv.reset()
+            if cfg.use_phase_mirror:
+                test_state = self.test_venv.set_mirror(test_state, True)
+        stats = EpisodeStats.init(cfg.num_processes, self.device)
+
+        # ---- curriculum strategies -----------------------------------
+        fixed = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
+                                      bar=cfg.curriculum_bar)
+                 if cfg.use_curriculum else None)
+        if fixed:
+            print("curriculum", fixed.level, flush=True)
+            env_state = fixed.install(env_state)
+        specialist = curr.SpecialistSchedule(self.venv) if cfg.use_specialist else None
+        if specialist:
+            env_state = specialist.install(env_state)
+
+        ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
+        logger = ConsoleCSVLogger(exp_dir, console_log_interval=cfg.log_interval,
+                                  resume=cfg.resume)
+
+        start = time.time()
+        next_checkpoint = cfg.save_every
+        max_ep_reward = float("-inf")
+        test_rets = np.zeros(0)
+        start_update = 0
+        anneal_start = -1  # update where the logstd anneal began (-1: not yet)
+
+        # ---- full-resume snapshot: params, both optimizers, env and test
+        # fleet state, episode stats, every generator, the curricula and
+        # the counters, so a resumed run continues the same trajectory
+        def make_snapshot(update, frames):
+            tr = np.full(max(cfg.num_tests, 1), np.nan, np.float32)
+            tr[: len(test_rets)] = np.asarray(test_rets, np.float32)[: len(tr)]
+            snap = {
+                "policy": policy.state_dict(),
+                "opt_state": opt_state,
+                "value_opt_state": value_opt_state,
+                "env_state": env_state,
+                "obs": obs,
+                "stats": stats,
+                "generators": {k: g.get_state() for k, g in self._generators().items()},
+                "update": update,
+                "frames": frames,
+                "max_ep_reward": max(max_ep_reward, -1e30),
+                "test_rets": torch.as_tensor(tr),
+                # the value-based curricula's keys (ROADMAP item 12) keep
+                # their "absent" values, so the layout stays when they come
+                "curriculum": {
+                    "fixed_level": fixed.level if fixed else -1,
+                    "fixed_frac": fixed.frac if fixed else -1.0,
+                    "assist_level": -1,
+                    "assist_frac": -1.0,
+                    "specialist": specialist.specialist if specialist else -1,
+                    "thr_uniform_counter": -1,
+                    "thr_uniform_sampling": False,
+                    "anneal_start": anneal_start,
+                    "first_sampling": bool(cfg.first_sampling),
+                },
+            }
+            if self.test_venv is not None:
+                snap["test_state"] = test_state
+                snap["test_obs"] = test_obs
+            return snap
+
+        if cfg.resume and ckpt.exists("latest"):
+            snap = ckpt.restore_like("latest", make_snapshot(0, 0))
+            policy.load_state_dict(snap["policy"])
+            opt_state, value_opt_state = snap["opt_state"], snap["value_opt_state"]
+            env_state, obs, stats = snap["env_state"], snap["obs"], snap["stats"]
+            for k, g in self._generators().items():
+                g.set_state(snap["generators"][k])
+            start_update = int(snap["update"])
+            max_ep_reward = float(snap["max_ep_reward"])
+            tr = snap["test_rets"].numpy()
+            test_rets = tr[~np.isnan(tr)]
+            if self.test_venv is not None:
+                test_state, test_obs = snap["test_state"], snap["test_obs"]
+            c = snap["curriculum"]
+            if fixed:
+                fixed.level = int(c["fixed_level"])
+                fixed.frac = float(c["fixed_frac"])
+                env_state = fixed.install(env_state)
+            anneal_start = int(c["anneal_start"])
+            if specialist:
+                specialist.specialist = int(c["specialist"])
+            next_checkpoint = ((int(snap["frames"]) // int(cfg.save_every)) + 1) * cfg.save_every
+            print(f"resumed from update {start_update}", flush=True)
+        self.start_update = start_update
+        self.update_times = []
+
+        prof = None
+        for j in range(start_update, cfg.num_updates):
+            # ---- profiling ------------------------------------------------
+            if cfg.profile_dir is not None and j == 10:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            if prof is not None and j == 13:
+                prof.stop()
+                os.makedirs(cfg.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+                prof = None
+                print(f"profiler trace written to {cfg.profile_dir}", flush=True)
+
+            # ---- LR schedule (reference train.py:213-220) ------------------
+            if cfg.lr_decay_type == "linear":
+                lr = linear_decay(j, cfg.num_updates, cfg.lr, final_value=0.0)
+            elif cfg.lr_decay_type == "exponential":
+                lr = exponential_decay(j, 0.99, cfg.lr, final_value=3e-5)
+            else:
+                lr = cfg.lr
+            if cfg.lr_warmup_updates:
+                lr = lr * min(1.0, (j + 1) / cfg.lr_warmup_updates)
+
+            # ---- curriculum pre-hooks -------------------------------------
+            if fixed:
+                env_state = fixed.tick(env_state)
+            # reference alternation: `update_values` every other update
+            value_only = cfg.use_value_update and j % 2 == 1
+            # mirror the current level onto the deterministic test fleet
+            if cfg.test_curriculum and self.test_venv is not None and fixed:
+                test_state = self.test_venv.update_curriculum(test_state, fixed.frac)
+
+            # ---- the update -----------------------------------------------
+            t0 = time.perf_counter()
+            env_state, obs, stats, batch, aux = self.rollout(policy, env_state, obs, stats,
+                                                             value_only)
+            self._sync()
+            t1 = time.perf_counter()
+            it_opt = value_opt_state if value_only else opt_state
+            it_opt, metrics = self.update(policy, it_opt, batch, lr, value_only)
+            if value_only:
+                value_opt_state = it_opt
+            else:
+                opt_state = it_opt
+            self._sync()
+            t2 = time.perf_counter()
+
+            # ---- Monitor-style per-episode log (envs_utils.py:71-194) -------
+            if cfg.episode_log:
+                done = aux["ep_done"].cpu().numpy()
+                if done.any():
+                    ep_ret = aux["ep_return"].cpu().numpy()
+                    ep_len = aux["ep_len"].cpu().numpy()
+                    t_now = time.time() - start
+                    with open(os.path.join(exp_dir, "episodes.csv"), "a") as f:
+                        if f.tell() == 0:
+                            f.write("r,l,t\n")
+                        for r_, l_ in zip(ep_ret[done], ep_len[done]):
+                            f.write(f"{r_:.3f},{int(l_)},{t_now:.2f}\n")
+
+            # ---- test fleet (reference train.py:472-500) -------------------
+            test_fresh = False
+            if cfg.num_tests > 0 and j % cfg.test_interval == 0:
+                test_state, test_obs, test_stats = self._test_eval(policy, test_state, test_obs)
+                tvalid = test_stats.valid.cpu().numpy()
+                test_rets = test_stats.ret.cpu().numpy()[tvalid]
+                test_fresh = True
+            t3 = time.perf_counter()
+
+            # ---- episode stats to host ---------------------------------
+            valid = stats.valid.cpu().numpy()
+            rets = stats.ret.cpu().numpy()[valid]
+            mean_rew = float(rets.mean()) if rets.size else 0.0
+
+            # ---- fixed curriculum advance --------------------------------
+            # advance metric: stochastic training mean (reference
+            # train.py:503) or, with advance_on_test, the deterministic
+            # test-fleet mean, only on updates with a fresh test rollout
+            if cfg.advance_on_test:
+                adv_metric = float(test_rets.mean()) if test_fresh and test_rets.size else None
+            else:
+                adv_metric = mean_rew if rets.size else None
+            if fixed and adv_metric is not None:
+                env_state, advanced = fixed.post_update(env_state, adv_metric)
+                if advanced and cfg.advance_logstd != 0.0:
+                    # restore exploration for the harder level
+                    reinflate_logstd(policy, cfg.advance_logstd)
+
+            # ---- late-run exploration anneal (networks.cap_logstd) ----------
+            if cfg.anneal_updates > 0:
+                if anneal_start < 0:
+                    if cfg.anneal_start_update >= 0:
+                        at_top = j >= cfg.anneal_start_update
+                    else:
+                        at_top = (fixed.level >= 5 and fixed.frac >= 5.0 if fixed
+                                  else j >= int(0.6 * cfg.num_updates))
+                    if at_top:
+                        anneal_start = j
+                        print(f"logstd anneal begins at update {j + 1}", flush=True)
+                if anneal_start >= 0:
+                    t = min(1.0, (j - anneal_start) / cfg.anneal_updates)
+                    cap_logstd(policy, -1.5 + t * (cfg.final_logstd + 1.5))
+
+            if specialist and rets.size:
+                env_state = specialist.post_update(
+                    env_state, mean_rew,
+                    save_fn=lambda k: ckpt.save(f"specialist_{k}",
+                                                {"policy": policy.state_dict()}))
+
+            # ---- failure detection: NaN watchdog --------------------------
+            if not math.isfinite(float(metrics.value_loss)):
+                ckpt.save("crash", {"policy": policy.state_dict(), "update": j + 1})
+                raise RuntimeError(f"non-finite losses at update {j + 1}; state saved to "
+                                   "checkpoints/crash")
+
+            # ---- checkpointing (reference cadence) ---------------------------
+            frame_count = (j + 1) * cfg.num_steps * cfg.num_processes
+            is_best = rets.size > 1 and mean_rew > max_ep_reward
+            if is_best:
+                max_ep_reward = mean_rew
+            snap = None
+            save_numbered = frame_count >= next_checkpoint or j == cfg.num_updates - 1
+            save_latest = (j + 1) % cfg.checkpoint_interval == 0 or j == cfg.num_updates - 1
+            if save_numbered or save_latest or is_best:
+                snap = make_snapshot(j + 1, frame_count)
+            if save_numbered:
+                ckpt.save(str(int(next_checkpoint)), snap)
+                next_checkpoint += cfg.save_every
+            if save_latest:
+                ckpt.save("latest", snap)
+            if is_best:
+                ckpt.save("best", snap)
+
+            # ---- logging (reference train.py:564-578) -----------------------
+            if rets.size > 1:
+                elapsed = time.time() - start
+                done_frames = frame_count - start_update * cfg.num_steps * cfg.num_processes
+                logger.log_epoch({
+                    "iter": j + 1,
+                    "total_num_steps": frame_count,
+                    "fps": int(done_frames / elapsed),
+                    "entropy": float(metrics.dist_entropy),
+                    "value_loss": float(metrics.value_loss),
+                    "action_loss": float(metrics.action_loss),
+                    "stats": {"rew": rets},
+                    # blank (not repeated) between test intervals
+                    "test_stats": {
+                        "rew": (test_rets if test_rets.size else np.zeros(1))
+                        if test_fresh or cfg.test_interval == 1 else None
+                    },
+                })
+            self.update_times.append(dict(update=j + 1, rollout_s=t1 - t0, update_s=t2 - t1,
+                                          test_s=t3 - t2))
+
+        if prof is not None:
+            prof.stop()
+        logger.close()
+        return policy
+
+
+def main(argv=None, device=None):
+    """`python -m steppingstone_tpu_torch.runtime.train [with] k=v ...`:
+    one training run on the card (`device` picks another)."""
+    cfg = parse_cli(argv)
+    Trainer(cfg, device=device).train()
+
+
+if __name__ == "__main__":
+    main()

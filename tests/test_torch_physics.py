@@ -14,11 +14,14 @@ Control steps use the kernel parity tolerances of tests/test_pallas_step.py
 four substeps of stiff penalty contact amplify those rounding
 differences."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_draws import jax_step_per_env
 
 from steppingstone_tpu.physics import contact as jct
 from steppingstone_tpu.physics import dynamics as jdyn
@@ -32,6 +35,7 @@ from steppingstone_tpu_torch.physics import dynamics as tdyn
 from steppingstone_tpu_torch.physics import engine as teng
 from steppingstone_tpu_torch.physics import kinematics as tkin
 from steppingstone_tpu_torch.physics.model import build_model as tbuild
+from steppingstone_tpu_torch.physics.model import with_rotated_frames
 from steppingstone_tpu_torch.physics.robots.cassie import cassie as tcassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d as twalker3d
 
@@ -344,22 +348,29 @@ def test_engine_step_pd_matches_pallas_kernel_interpret(support_hy):
 
 
 def test_engine_step_refuses_unported_kernels(walker):
-    """Only rotated joint frames (K4) are refused; stable PD and planks
-    return finite states on the CPU."""
-    import dataclasses
-
-    _, mt = walker
-    q, qd, tau, stones, sr, ug = _t(*_inputs(np.random.default_rng(7), jwalker3d(), b=2))
-    state = teng.PhysicsState(q, qd)
-    rot = np.tile(np.array([1, 0, 0, 0], np.float32), (mt.nbodies, 1))
-    with pytest.raises(NotImplementedError, match="K4"):
-        teng.step(dataclasses.replace(mt, joint_rot=rot), state, tau, stones, sr, ug)
+    """Nothing is refused any more: rotated joint frames (K4) run and match
+    the JAX package's jnp path on Walker3D with rotations drawn from a seed
+    (torques, discs, the Pallas test's bars), and stable PD and planks
+    return finite states on the CPU. One substep: the rotations enter the
+    forward kinematics of every substep alike, and XLA's CPU compile of the
+    rotated Walker3D step grows by ~25 s a substep."""
+    mj, mt = walker
+    rng = np.random.default_rng(7)
+    q, qd, tau, stones, sr, ug = _inputs(rng, mj, b=4)
+    mt_rot = with_rotated_frames(mt, seed=7)
+    mj_rot = dataclasses.replace(mj, joint_rot=mt_rot.joint_rot)
+    ref = jax_step_per_env(mj_rot, q, qd, tau, stones, sr, ug, substeps=1)
+    st, info = teng.step(mt_rot, teng.PhysicsState(*_t(q, qd)), *_t(tau, stones, sr, ug),
+                         substeps=1)
+    _check_step((st.q, st.qd, info), ref)
+    assert info.foot_contact.any() and (info.contact_force_sum > 0).any()
+    state = teng.PhysicsState(*_t(q[:2], qd[:2]))
     target = teng.pd_target_from_action(mt, torch.zeros(2, mt.action_dim))
     for kw in (dict(pd_target=target), dict(support_hy=0.6),
                dict(pd_target=target, pd_power=0.5, support_hy=1.5)):
-        st, info = teng.step(mt, state, tau, stones, sr, ug, **kw)
+        st, info = teng.step(mt, state, *_t(tau[:2], stones[:2], sr[:2], ug[:2]), **kw)
         assert torch.isfinite(st.q).all() and torch.isfinite(st.qd).all(), kw
-        assert st.q.shape == q.shape and info.foot_stone.shape == (2, 2)
+        assert st.q.shape == (2, mt.nq) and info.foot_stone.shape == (2, 2)
 
 
 def test_default_state_matches_jax(walker):

@@ -1,17 +1,21 @@
 """Structure of the PyTorch/CUDA port, checked on the CPU: it imports no
 JAX, its entry points default to the card, the control-step wrapper
 refuses what the kernels cannot take and broadcasts unbatched operands,
-and the kernels' source is where the build expects it. The card-only tests
-hold K1, K2, K3 and K2+K3 against their plain version and skip on a host
-without a GPU (run them on the card with `pytest tests/test_torch_structure.py`)."""
+and the sources are where the builds expect them. The card-only tests
+hold the eight control-step variants (K1..K4 and their combinations)
+against their plain version and skip on a host without a GPU (run them on
+the card with `pytest --noconftest tests/test_torch_structure.py`)."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from steppingstone_tpu_torch.physics import engine, step_kernel
+from steppingstone_tpu_torch.physics import engine, step_kernel, urdf
+from steppingstone_tpu_torch.physics.model import with_rotated_frames
 from steppingstone_tpu_torch.physics.robots.cassie import cassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
 
@@ -44,7 +48,9 @@ def test_port_imports_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 25
     for module in ("physics/robots/cassie.py", "agents/gae.py", "agents/mirror.py",
-                   "agents/ppo.py", "runtime/config.py", "runtime/train.py"):
+                   "agents/ppo.py", "runtime/config.py", "runtime/train.py",
+                   "physics/urdf.py", "physics/mjcf_export.py", "runtime/checkpoint.py",
+                   "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py"):
         assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
@@ -58,7 +64,7 @@ def test_entry_points_default_to_the_card():
     from steppingstone_tpu_torch.envs.vector import VecEnv
 
     from steppingstone_tpu_torch.runtime.config import TrainConfig
-    from steppingstone_tpu_torch.runtime.train import Trainer
+    from steppingstone_tpu_torch.runtime.train import Trainer, main
 
     if torch.cuda.is_available():
         assert make_env("Walker3DStepperEnv-v0").device.type == "cuda"
@@ -70,6 +76,11 @@ def test_entry_points_default_to_the_card():
     cfg = TrainConfig(num_processes=4, episode_steps=8, num_frames=8, num_tests=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg)
+    # the training CLI runs on the card: without one it raises before it
+    # writes anything
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["num_processes=4", "episode_steps=8", "num_frames=8", "num_tests=0",
+              "experiment_dir=/nonexistent/never-created"])
     assert Trainer(cfg, device="cpu").venv.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ActorCritic(60, 21)
@@ -111,14 +122,40 @@ def test_k1_wrapper_rejects_bad_inputs(case):
 
 
 def test_k1_wrapper_refuses_rotated_frames():
-    import dataclasses
+    """Rotated joint frames are no longer refused: on the CPU the wrapper
+    runs the plain version (no launch) and it matches JAX's jnp path to the
+    Pallas test's bars, on tests/test_pallas_step.py's pendulum with its
+    0.4 rad x-rotated joint frame."""
+    jax = pytest.importorskip("jax")  # the card machine needs no JAX
+    from steppingstone_tpu.physics import engine as jeng
+    from steppingstone_tpu.physics.model import build_model as jbuild
 
-    import numpy as np
+    from steppingstone_tpu_torch.physics.model import build_model
 
-    m, args = _k1_args()
-    rot = np.tile(np.array([1, 0, 0, 0], np.float32), (m.nbodies, 1))
-    with pytest.raises(NotImplementedError, match="K4"):
-        step_kernel.control_step(dataclasses.replace(m, joint_rot=rot), *args)
+    bodies = [
+        dict(name="base", mass=5.0, inertia=(0.5, 0.5, 0.5), root_height=1.0),
+        dict(name="arm", parent="base", anchor=(0, 0, 0), axis=(0, 1, 0), mass=1.0,
+             com=(0, 0, -0.5), inertia=(0.05, 0.05, 0.05), damping=0.1, limits=(-2.0, 2.0)),
+    ]
+    contacts = [dict(body="arm", offset=(0, 0, -0.5), radius=0.05),
+                dict(body="base", offset=(0, 0, -0.1), radius=0.05)]
+    rot = np.array([[1, 0, 0, 0], [np.cos(0.2), np.sin(0.2), 0, 0]], np.float32)
+    m = dataclasses.replace(build_model("pendulum", bodies, contacts), joint_rot=rot)
+    mj = dataclasses.replace(jbuild("pendulum", bodies, contacts), joint_rot=rot)
+    g = torch.Generator().manual_seed(0)
+    st = engine.default_state(m, 4)
+    args = [st.q.clone(), 0.3 * torch.randn(st.qd.shape, generator=g),
+            20 * torch.randn(4, m.njoints, generator=g), torch.zeros(4, 6, 6),
+            torch.full((4,), 0.25), torch.ones(4, dtype=torch.bool)]
+    args[0][:, 2] -= 0.5  # the tilted arm's sphere touches the ground
+    q, qd, info = step_kernel.control_step(m, *args)
+    assert sum(step_kernel.CONTROL_STEP.launches.values()) == 0
+    assert step_kernel.variant(False, False, True) == "K4"
+    ref = jax.jit(jax.vmap(lambda *a: jeng._step_scan(mj, jeng.PhysicsState(a[0], a[1]),
+                                                      *a[2:])[0]))(*(a.numpy() for a in args))
+    np.testing.assert_allclose(q.numpy(), np.asarray(ref.q), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(qd.numpy(), np.asarray(ref.qd), rtol=2e-3, atol=2e-2)
+    assert (info.contact_force_sum > 0).any()
 
 
 def test_k1_wrapper_runs_the_plain_version_on_cpu():
@@ -145,7 +182,7 @@ def test_wrapper_broadcasts_unbatched_operands():
                             pd=(target.expand(3, -1), torch.full((3,), 0.7)), support_hy=1.5)
     assert torch.equal(out[0], ref[0].q) and torch.equal(out[1], ref[0].qd)
     assert sum(step_kernel.CONTROL_STEP.launches.values()) == 0
-    assert [step_kernel.variant(pd, hy) for pd, hy in
+    assert [step_kernel.variant(pd, hy, rot) for rot in (False, True) for pd, hy in
             [(False, False), (False, True), (True, False), (True, True)]] == list(
         step_kernel.VARIANTS)
 
@@ -159,6 +196,12 @@ def test_kernel_source_is_the_only_one():
     assert "pallas_step.py" in text and "sm_90a" in text
     assert "compute_90a,code=sm_90a" in " ".join(step_kernel.NVCC_FLAGS)
     assert "steppingstone_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
+    # the second build product: the URDF parser, from the repo's native
+    # source, with the host compiler, into the same ignored directory
+    assert urdf.SOURCE == ROOT / "native" / "urdf_loader.cpp" and urdf.SOURCE.exists()
+    assert urdf.BUILD_DIR == step_kernel.BUILD_DIR
+    assert urdf.library_path().parent == urdf.BUILD_DIR
+    assert urdf.library_path().name.startswith("liburdf_loader_")
 
 
 def test_k1_bound_counts():
@@ -176,6 +219,16 @@ def test_k1_bound_counts():
         step_kernel.control_step_bytes(c, 20) + 4 * (14 + 1))
     assert step_kernel.control_step_flops(c, 20, 4, pd=True) == (
         step_kernel.control_step_flops(c, 20, 4) + 4 * 13 * 10)
+    # rotated frames: one Hamilton product (28 operations) per substep for
+    # each row that is not the identity; the bytes do not change
+    for model in (m, c):
+        r = with_rotated_frames(model, seed=0)
+        rows = int(np.sum(np.any(r.joint_rot != np.array([1, 0, 0, 0]), axis=1)))
+        assert 0 < rows < model.nbodies - 1
+        for kw in (dict(), dict(pd=True, support_hy=1.5)):
+            assert step_kernel.control_step_flops(r, 20, 4, rot=True, **kw) == (
+                step_kernel.control_step_flops(model, 20, 4, **kw) + 4 * 28 * rows)
+        assert step_kernel.control_step_bytes(r, 20) == step_kernel.control_step_bytes(model, 20)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card and nvcc")
@@ -207,11 +260,26 @@ def test_k1_matches_plain_on_the_card(batch):
 def test_k2_k3_match_plain_on_the_card(variant):
     """K2 on Walker3D torques over LargePlank planks, K3 on Cassie PD over
     discs, K2+K3 on Cassie PD over planks, against the plain version."""
+    _check_variant_on_the_card(variant)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("variant", ["K4", "K2+K4", "K3+K4", "K2+K3+K4"])
+def test_k4_variants_match_plain_on_the_card(variant):
+    """The rotated-frame variants on Walker3D (torques) and Cassie (PD)
+    with fixed joint rotations drawn from a seed, over discs and planks,
+    against the plain version."""
+    _check_variant_on_the_card(variant)
+
+
+def _check_variant_on_the_card(variant):
     torch.backends.cuda.matmul.allow_tf32 = False
-    pd, plank = step_kernel.VARIANTS[variant]
+    pd, plank, rot = step_kernel.VARIANTS[variant]
     batch = 1000
     g = torch.Generator(device="cuda").manual_seed(7)
     m = cassie() if pd else walker3d()
+    if rot:
+        m = with_rotated_frames(m, seed=1)
     st = engine.default_state(m, batch, "cuda")
     q = st.q.clone()
     q[:, 2] -= 0.15

@@ -132,3 +132,24 @@ def rollout_draws(key, env_keys, prob, ep_done, steps: int, n_envs: int, action_
         env_draws.append(d)
         env_keys = jnp.where(done[t][:, None], k_state, k_keep)
     return torch.stack(noise), env_draws
+
+
+def jax_step_per_env(model, q, qd, tau, stones, sr, ug, pd=None, support_hy=None,
+                     substeps=4):
+    """JAX engine._step_scan (the jnp path) over a batch, one env at a time:
+    jit-compiled once unbatched and called per env, because XLA's CPU
+    compile of the vmapped step of a model with rotated joint frames takes
+    minutes. pd is None or (target (B, NJ), power (B,)). Returns numpy
+    (q, qd, StepInfo) stacked over the batch."""
+    from steppingstone_tpu.physics import engine as jeng
+
+    def one(q_, qd_, t_, st_, r_, g_, *pd_):
+        s, i = jeng._step_scan(model, jeng.PhysicsState(q_, qd_), t_, st_, r_, g_,
+                               pd=pd_ or None, support_hy=support_hy, substeps=substeps)
+        return s.q, s.qd, i
+
+    fn = jax.jit(one)
+    extra = () if pd is None else tuple(np.asarray(x) for x in pd)
+    outs = [fn(*(np.asarray(x)[b] for x in (q, qd, tau, stones, sr, ug) + extra))
+            for b in range(np.asarray(q).shape[0])]
+    return jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *outs)
