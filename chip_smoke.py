@@ -9,8 +9,12 @@ order; any failure exits non-zero and no phase's failure is caught:
 
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
-   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4) and
-   ptxas's registers, stack frame and spills for each
+   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4: K1 and
+   K2 as control_step_warp, a warp per env, the others as the
+   thread-per-env template, which also keeps the thread-per-env K1 and K2
+   for timing) and ptxas's registers, stack frame and spills for each;
+   for Walker3D, control_step_warp's shared memory per block and resident
+   envs per SM
 3. each variant against its plain PyTorch version (engine._step_scan) on
    the card at B=4096 and a ragged B=1000 (K2 also at 1024 and 64, the
    round-5 Walker3D run's fleet and test fleet), on states from a short rollout
@@ -21,10 +25,12 @@ order; any failure exits non-zero and no phase's failure is caught:
    Cassie stable PD over planks, and the K4 variants on the same four
    with fixed joint rotations drawn from a seed (the repo holds no
    full-width URDF robot); then each variant's time per launch (K2's also
-   at 1024 and 64)
+   at 1024 and 64); K1 and K2 timed in turns with their thread-per-env
+   design on the same inputs (warp, thread, thread, warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
-   the plain version allowed):
+   the plain version, and no launch of the thread-per-env K1 or K2,
+   allowed):
    - K1: Walker3D rollout, VecEnv(4096), 100 steps, exactly 100 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -58,7 +64,9 @@ order; any failure exits non-zero and no phase's failure is caught:
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
      second unbroken run
-5. one JSON line `{"kernels": [...]}`, the card line, and last
+5. one JSON line `{"kernels": [...]}` (K1 and K2 with their `design` and
+   `earlier_ms`, the thread-per-env design's time in this run), the card
+   line, and last
    `{"ok": true, "device": {...}}`
 """
 
@@ -110,11 +118,16 @@ VARIANT_ENVS = {
     "K2+K3+K4": ("CassieStepper-v1", {"plank_class": "LargePlank"}),
 }
 ROT_SEED = 5
-# template arguments <PD, PLANK, ROT> as they appear in the kernels' mangled names
-MANGLED = {"ILb" + "ELb".join(str(int(b)) for b in flags) + "EE": v
-           for v, flags in {"K1": (0, 0, 0), "K2": (0, 1, 0), "K3": (1, 0, 0),
-                            "K2+K3": (1, 1, 0), "K4": (0, 0, 1), "K2+K4": (0, 1, 1),
-                            "K3+K4": (1, 0, 1), "K2+K3+K4": (1, 1, 1)}.items()}
+# each kernel's name and template arguments as they appear in its mangled
+# name: control_step_kernel<PD, PLANK, ROT> (K1 and K2 there are the
+# thread-per-env design) and control_step_warp<PLANK>
+MANGLED = {
+    **{"control_step_kernelILb" + "ELb".join(str(int(b)) for b in flags) + "EE": v
+       for v, flags in {"K1@thread": (0, 0, 0), "K2@thread": (0, 1, 0), "K3": (1, 0, 0),
+                        "K2+K3": (1, 1, 0), "K4": (0, 0, 1), "K2+K4": (0, 1, 1),
+                        "K3+K4": (1, 0, 1), "K2+K3+K4": (1, 1, 1)}.items()},
+    "control_step_warpILb0EE": "K1", "control_step_warpILb1EE": "K2"}
+DESIGN = {"K1": "warp per env", "K2": "warp per env"}  # the others: "thread per env"
 URDF_STEPS = 60
 ROT_WALKER_STEPS = 100
 ROT_PLANK_STEPS = 25
@@ -422,8 +435,9 @@ def limit_flips(model, args, kw, envs):
 
 def compare_step(model, what: str, args, kw, **extra) -> dict:
     """One control step of the kernel against engine._step_scan on the same
-    inputs, under the Pallas bars of tests/test_pallas_step.py, on every env
-    but the joint-limit flips (see limit_flips); raises on a miss. Returns
+    inputs, under the Pallas bars of tests/test_pallas_step.py and a bar on
+    contact_force_sum (rel 1e-3, abs 1.0), on every env but the joint-limit
+    flips (see limit_flips); raises on a miss. Returns
     the errors and the inputs' contact, stone and limit shares."""
     import torch
 
@@ -450,6 +464,7 @@ def compare_step(model, what: str, args, kw, **extra) -> dict:
         foot_stone_agreement=agree(info.foot_stone, ref.foot_stone),
         at_limit_agreement=agree(info.joint_at_limit, ref.joint_at_limit),
         max_foot_force_err=float((info.foot_normal_force - ref.foot_normal_force)[keep].abs().max()),
+        max_force_sum_err=float((info.contact_force_sum - ref.contact_force_sum)[keep].abs().max()),
         contact_fraction=float(ref.foot_contact.float().mean()),
         envs_in_contact=float((ref.contact_force_sum > 0).float().mean()),
         on_stone_fraction=float((ref.foot_stone >= 0).float().mean()),
@@ -461,6 +476,10 @@ def compare_step(model, what: str, args, kw, **extra) -> dict:
     torch.testing.assert_close(qd[keep], st.qd[keep], rtol=2e-3, atol=2e-2)
     torch.testing.assert_close(info.foot_normal_force[keep], ref.foot_normal_force[keep],
                                rtol=1e-2, atol=1.0)
+    # the sum over spheres and substeps, in another order than the plain
+    # version's
+    torch.testing.assert_close(info.contact_force_sum[keep], ref.contact_force_sum[keep],
+                               rtol=1e-3, atol=1.0)
     if not (got["foot_contact_agreement"] > 0.999 and got["foot_stone_agreement"] > 0.995
             and got["at_limit_agreement"] > 0.999):
         raise AssertionError(f"{what}: diagnostics disagree with the plain version: {got}")
@@ -496,8 +515,17 @@ def time_variant(env, variant: str, args, kw) -> dict:
     if pd:
         launch_kw.update(target_t=kw["target"].t().contiguous(), power=kw["power"])
     cp = env.cfg.contact
-    ms = cuda_ms(lambda: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw),
-                 TIMED_LAUNCHES)
+    launch = lambda **k: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw, **k)
+    earlier = {}
+    if variant in DESIGN:
+        # in turns with the thread-per-env design on the same inputs: warp,
+        # thread, thread, warp
+        turns = [cuda_ms(lambda: launch(thread_design=thread), TIMED_LAUNCHES)
+                 for thread in (False, True, True, False)]
+        ms = (turns[0] + turns[3]) / 2
+        earlier = dict(earlier_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
+    else:
+        ms = cuda_ms(launch, TIMED_LAUNCHES)
     wrapper_ms = cuda_ms(lambda: step_kernel.control_step(model, *args, **kw), TIMED_LAUNCHES)
     plain_ms = cuda_ms(lambda: plain_version(model, args, kw), 3)
     n_stones, batch = args[3].shape[1], args[0].shape[0]
@@ -505,8 +533,8 @@ def time_variant(env, variant: str, args, kw) -> dict:
                                            rot) * batch
     nbytes = step_kernel.control_step_bytes(model, n_stones, pd) * batch
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    got = dict(variant=variant, batch=batch, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-               bound_ms=max(ops_ms, bytes_ms),
+    got = dict(variant=variant, batch=batch, ms=ms, **earlier, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                flops=flops, bytes=nbytes)
     print(f"{variant} timing:", json.dumps(got), flush=True)
@@ -561,7 +589,7 @@ def rollout_path(env, variant: str, steps: int, detail: bool) -> dict:
     return out
 
 
-def device_time(prof, wall_ms: float, steps: int, key: str = "control_step_kernel") -> dict:
+def device_time(prof, wall_ms: float, steps: int, key: str = "control_step") -> dict:
     """Device kernel time summed over a torch.profiler trace against the
     host clock. The profiler slows the host, so the idle share it gives is
     an upper estimate."""
@@ -1088,6 +1116,18 @@ def main() -> int:
     print_ptxas(step_kernel.CONTROL_STEP.build_log)
 
     envs = {v: variant_env(v) for v in VARIANT_ENVS}
+    occupancy = {}
+    for variant in DESIGN:
+        model, plank = envs[variant].cfg.model, step_kernel.VARIANTS[variant][1]
+        n_stones = envs[variant].cfg.n_stones
+        floats = step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
+        occupancy[variant] = dict(
+            model=model.name, stones=n_stones, bytes_per_env=4 * floats,
+            smem_bytes_per_block=4 * floats * step_kernel.WARP_ENVS,
+            envs_per_block=step_kernel.WARP_ENVS,
+            envs_per_sm=step_kernel.CONTROL_STEP.warp_envs_per_sm(model, n_stones, plank),
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    print("control_step_warp occupancy:", json.dumps(occupancy), flush=True)
     checks, timings, path_timings = {}, {}, {}
     for variant, env in envs.items():
         batches = CHECK_BATCHES + PATH_BATCHES.get(variant, ())
@@ -1129,6 +1169,7 @@ def main() -> int:
             replaces="steppingstone_tpu/physics/pallas_step.py:733",
             specialization=f"pd={pd}, support_hy={1.5 if plank else None}, "
                            f"joint_rot={'set' if rot else None}",
+            design=DESIGN.get(variant, "thread per env"),
             launches=paths[variant]["launches"],
             other_paths=other_paths.get(variant, {}),
             max_abs_err=max(max(x["max_q_err"], x["max_qd_err"]) for x in c),
@@ -1137,6 +1178,8 @@ def main() -> int:
             limit_flips=sum(x["limit_flips"] for x in c),
             checked_batches=[x["batch"] for x in c],
             ms=t["ms"],
+            # the thread-per-env design's time in this run, same inputs
+            earlier_ms=t.get("earlier_ms"),
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"],
             bound_by=t["bound_by"],
@@ -1146,8 +1189,9 @@ def main() -> int:
             flops=t["flops"],
             bytes=t["bytes"],
             # at the batch sizes of its path (the 4096-env numbers above)
-            path_batches={b: {k: p[k] for k in ("ms", "bound_ms", "plain_ms")}
+            path_batches={b: {k: p.get(k) for k in ("ms", "earlier_ms", "bound_ms", "plain_ms")}
                           for b, p in path_timings[variant].items()},
+            occupancy=occupancy.get(variant),
         ))
     print(json.dumps({"kernels": kernels}))
     print("card:", card)

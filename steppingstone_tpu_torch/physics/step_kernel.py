@@ -1,9 +1,9 @@
 """Kernels K1..K4, the fused 60 Hz control step on the card, and their
 wrapper.
 
-The kernel (csrc/control_step.cu, CUDA C++ for sm_90a) replaces the TPU
+The kernels (csrc/control_step.cu, CUDA C++ for sm_90a) replace the TPU
 kernel steppingstone_tpu/physics/pallas_step.py `build_batched_step` in
-each of its specializations, as compile-time variants of one body:
+each of its specializations:
 
 - K1: torque actuation, disc support (pd=False, support_hy=None);
 - K2: plank support (support_hy=<float>);
@@ -11,14 +11,22 @@ each of its specializations, as compile-time variants of one body:
 - K4: rotated joint frames (a model with `joint_rot`, from a URDF);
 - their combinations K2+K3, K2+K4, K3+K4 and K2+K3+K4.
 
+K1 and K2 run `control_step_warp` (a warp per env, its scratch in shared
+memory laid out by `warp_layout`, the tree walked with the model's
+`kernel_tables`); the others run the thread-per-env template
+`control_step_kernel<PD, PLANK, ROT>`. The thread-per-env K1 and K2 stay
+built for timing the two designs against each other
+(`launch(..., thread_design=True)`, counted as "K1@thread" / "K2@thread");
+no path takes them.
+
 It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
 the library for the current source exists.
 
 `control_step` is the only entry: CPU tensors run the plain PyTorch
 version `engine._step_scan`; CUDA tensors launch the kernel or raise —
-there is no fallback. `CONTROL_STEP.launches[variant]` counts launches of
-each variant.
+there is no fallback. `CONTROL_STEP.launches[key]` counts launches of
+each variant (`COUNTED`).
 """
 
 from __future__ import annotations
@@ -44,6 +52,15 @@ from steppingstone_tpu_torch.physics.model import RobotModel
 MAXB, MAXC, MAXS = 32, 16, 32
 MAXJ = MAXB - 1
 MAXD = MAXJ + 6
+# control_step_warp: envs (warps) per block, and the sections of the model's
+# tables (mirrors of WARP_ENVS and T_* in csrc/control_step.cu)
+WARP_ENVS = 4
+T_LEVEL = 0
+T_ORDER = T_LEVEL + MAXB + 1
+T_CHILD = T_ORDER + MAXB
+T_CHILDREN = T_CHILD + MAXB + 1
+T_PAIRS = T_CHILDREN + MAXB
+T_SIZE = T_PAIRS + MAXD * (MAXD + 1) // 2
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "csrc" / "control_step.cu"
@@ -57,8 +74,62 @@ VARIANTS = {"K1": (False, False, False), "K2": (False, True, False),
             "K3+K4": (True, False, True), "K2+K3+K4": (True, True, True)}
 
 
+# the thread-per-env K1 and K2, launched only to time the designs
+THREAD_DESIGN = {"K1@thread": "K1", "K2@thread": "K2"}
+COUNTED = (*VARIANTS, *THREAD_DESIGN)
+
+
 def variant(pd: bool, plank: bool, rot: bool) -> str:
     return {v: k for k, v in VARIANTS.items()}[(bool(pd), bool(plank), bool(rot))]
+
+
+def warp_layout(nb: int, nc: int, n_stones: int, plank: bool) -> dict:
+    """One env's scratch of `control_step_warp` in shared memory, name ->
+    (offset, floats) in order: mirror of `warp_layout` in
+    csrc/control_step.cu, sized by the model and the stone count."""
+    nd, S = nb + 5, n_stones
+    sizes = dict(q=nb + 6, qd=nd, sc=3 * S, sn=3 * S, su=3 * S if plank else 0,
+                 sv=3 * S if plank else 0, pos=3 * nb, quat=4 * nb, phi=6 * nd, vel=6 * nb,
+                 acc=6 * nb, fb=6 * nb, ic=10 * nb, F=6 * nd, A=nd * (nd + 1) // 2, rhs=nd,
+                 cpt=3 * nc, cpv=3 * nc, cft=6 * nc, cfn=nc, csi=nc)
+    layout, offset = {}, 0
+    for name, n in sizes.items():
+        layout[name] = (offset, n)
+        offset += n
+    return layout
+
+
+def warp_floats(nb: int, nc: int, n_stones: int, plank: bool) -> int:
+    """Floats of one env's scratch in `control_step_warp`."""
+    offset, n = list(warp_layout(nb, nc, n_stones, plank).values())[-1]
+    return offset + n
+
+
+def kernel_tables(model: RobotModel):
+    """The model's tables for `control_step_warp`, as a (T_SIZE,) int32
+    array, with the number of tree levels and of mass-matrix entries:
+    bodies by tree level (level 0 is the root, each body one level below
+    its parent, ties by index), each body's children in decreasing index
+    (the order in which the serial loop adds them into their parent), and
+    the nonzeros (k, l), l <= k, of the ancestor pattern as (k << 16) | l."""
+    nb, parent = model.nbodies, [int(p) for p in model.parent]
+    depth = [0] * nb
+    for i in range(1, nb):
+        depth[i] = depth[parent[i]] + 1
+    nlev = max(depth) + 1
+    order = sorted(range(nb), key=lambda i: (depth[i], i))
+    tab = np.zeros(T_SIZE, np.int32)
+    tab[T_LEVEL:T_LEVEL + nlev + 1] = np.searchsorted([depth[i] for i in order], np.arange(nlev + 1))
+    tab[T_ORDER:T_ORDER + nb] = order
+    children = [sorted((c for c in range(1, nb) if parent[c] == i), reverse=True)
+                for i in range(nb)]
+    tab[T_CHILD:T_CHILD + nb + 1] = np.cumsum([0] + [len(c) for c in children])
+    flat = [c for cs in children for c in cs]
+    tab[T_CHILDREN:T_CHILDREN + len(flat)] = flat
+    mask = _ancestor_mask(model)
+    pairs = [(k << 16) | l for k in range(model.ndof) for l in range(k + 1) if mask[k, l]]
+    tab[T_PAIRS:T_PAIRS + len(pairs)] = pairs
+    return tab, nlev, len(pairs)
 
 _f, _i = ctypes.c_float, ctypes.c_int
 
@@ -146,18 +217,22 @@ def _nvcc() -> str:
 
 
 class ControlStepKernel:
-    """Builds, loads and launches the control-step kernels; `launches`
-    counts the launches of each variant (`VARIANTS`)."""
+    """Builds, loads and launches the control-step kernels from `source`
+    (by default the package's csrc/control_step.cu); `launches` counts the
+    launches of each variant (`COUNTED`)."""
 
-    def __init__(self):
+    def __init__(self, source: Path = SOURCE):
+        self.source = Path(source)
         self.reset_counts()
         self.build_log = ""  # ptxas's register / local-memory report of the last build
         self._lib = None
         self._models: dict = {}
         self._rotations: dict = {}
+        self._tables: dict = {}
+        self._model_copies: dict = {}
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"libcontrol_step_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> float:
@@ -171,12 +246,12 @@ class ControlStepKernel:
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
                 os.close(fd)
                 try:
-                    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
                                           check=True, capture_output=True, text=True)
                     self.build_log = done.stderr
                     os.replace(tmp, path)  # atomic: concurrent builds agree
                 except subprocess.CalledProcessError as err:
-                    raise RuntimeError(f"nvcc failed on {SOURCE}:\n{err.stderr}") from err
+                    raise RuntimeError(f"nvcc failed on {self.source}:\n{err.stderr}") from err
                 finally:
                     if os.path.exists(tmp):
                         os.remove(tmp)
@@ -186,60 +261,124 @@ class ControlStepKernel:
             lib.control_step_launch.restype = ctypes.c_int
             lib.control_step_launch.argtypes = (
                 [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint]
-                + [ctypes.c_void_p] * 13
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
+                 ctypes.c_int]
+                + [ctypes.c_void_p] * 15
             )
-            size = lib.control_step_model_size()
-            if size != ctypes.sizeof(_ModelData):
-                raise RuntimeError(
-                    f"ModelData layout mismatch: kernel {size} B, binding "
-                    f"{ctypes.sizeof(_ModelData)} B"
-                )
+            lib.control_step_launch_thread.restype = ctypes.c_int
+            lib.control_step_launch_thread.argtypes = (
+                [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float] + [ctypes.c_void_p] * 10
+            )
+            for fn in (lib.control_step_warp_floats, lib.control_step_warp_envs_per_sm):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_int] * 4
+            for fn in (lib.control_step_model_size, lib.control_step_tables_size,
+                       lib.control_step_warp_envs_per_block):
+                fn.restype = ctypes.c_int
+                fn.argtypes = []
+            mirrors = {"ModelData bytes": (lib.control_step_model_size(),
+                                           ctypes.sizeof(_ModelData)),
+                       "T_SIZE": (lib.control_step_tables_size(), T_SIZE),
+                       "WARP_ENVS": (lib.control_step_warp_envs_per_block(), WARP_ENVS)}
+            for name, (kernel, binding) in mirrors.items():
+                if kernel != binding:
+                    raise RuntimeError(f"{name} mismatch: kernel {kernel}, binding {binding}")
             self._lib = lib
         return time.perf_counter() - t0
 
     def reset_counts(self) -> None:
-        self.launches = dict.fromkeys(VARIANTS, 0)
+        self.launches = dict.fromkeys(COUNTED, 0)
+
+    def _warp_operands(self, key, model, n_stones: int, plank: bool, device):
+        """control_step_warp's device operands, cached: the model data of
+        `key` (a key of `_models`) copied to `device`, whose per-body,
+        per-joint and per-sphere arrays the lanes read each at its own
+        index, and the model's tables, after checking that the binding's
+        `warp_layout` mirror has the kernel's size for this model and stone
+        count."""
+        copy_key = (*key, device)
+        if copy_key not in self._model_copies:
+            self._model_copies[copy_key] = torch.frombuffer(
+                bytearray(self._models[key]), dtype=torch.uint8).to(device)
+        key = (model, n_stones, plank, device)
+        if key not in self._tables:
+            kernel = self._lib.control_step_warp_floats(model.nbodies, model.ncontacts, n_stones,
+                                                         int(plank))
+            binding = warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
+            if kernel != binding:
+                raise RuntimeError(f"warp_layout mismatch for {model.name}: kernel {kernel} "
+                                   f"floats, binding {binding}")
+            tab, nlev, npairs = kernel_tables(model)
+            self._tables[key] = (torch.as_tensor(tab, device=device), nlev, npairs)
+        return (self._model_copies[copy_key], *self._tables[key])
+
+    def warp_envs_per_sm(self, model, n_stones: int, plank: bool) -> int:
+        """Envs of control_step_warp resident on one SM of the current card
+        for this model and stone count (the CUDA occupancy calculator)."""
+        self.build()
+        n = self._lib.control_step_warp_envs_per_sm(model.nbodies, model.ncontacts, n_stones,
+                                                     int(plank))
+        if n < 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+        return n
 
     def launch(self, model, q_t, qd_t, tau_t, stones_t, stone_radius, use_ground,
                cparams: ContactParams, substeps: int, target_t=None, power=None,
-               support_hy=None):
+               support_hy=None, thread_design: bool = False):
         """One launch on CUDA tensors in the kernel's struct-of-arrays
         layout, env index fastest: q_t (nq, B), qd_t (ndof, B), tau_t
         (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
         float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
         for planks `support_hy` (a float); a model with `joint_rot` runs a
-        K4 variant. Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors.
-        Callers check inputs (`control_step` does)."""
+        K4 variant. `thread_design` launches the thread-per-env K1 or K2 in
+        place of control_step_warp, for timing the two. Returns new
+        (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers check inputs
+        (`control_step` does)."""
         self.build()
-        key = (model, cparams, substeps)
-        md = self._models.get(key)
+        model_key = (model, cparams, substeps)
+        md = self._models.get(model_key)
         if md is None:
-            md = self._models[key] = _model_data(model, cparams, substeps)
+            md = self._models[model_key] = _model_data(model, cparams, substeps)
         pd, plank = target_t is not None, support_hy is not None
         rot = model.joint_rot is not None
-        jrot, rot_rows = None, 0
-        if rot:
-            key = (model, q_t.device)
-            if key not in self._rotations:
-                self._rotations[key] = _joint_rotations(model, q_t.device)
-            jrot, rot_rows = self._rotations[key]
+        name = variant(pd, plank, rot)
+        if thread_design and name not in THREAD_DESIGN.values():
+            raise ValueError(f"{name} has no second design")
         B, S = q_t.shape[1], stones_t.shape[0] // 6
         outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
                 for n in (model.nq, model.ndof, model.njoints + 7)]
         ptr = lambda t: None if t is None else t.data_ptr()
-        ins = (jrot, q_t, qd_t, tau_t, target_t, power, stones_t, stone_radius, use_ground)
         # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
         # plain version compares against the same sum
         hy_margin = float(support_hy) + cparams.margin if plank else 0.0
         with torch.cuda.device(q_t.device):
             stream = torch.cuda.current_stream(q_t.device).cuda_stream
-            err = self._lib.control_step_launch(
-                ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
-                *(ptr(t) for t in ins + tuple(outs)), stream)
+            if thread_design:
+                name += "@thread"
+                err = self._lib.control_step_launch_thread(
+                    ctypes.byref(md), B, S, int(plank), hy_margin,
+                    *(ptr(t) for t in (q_t, qd_t, tau_t, stones_t, stone_radius, use_ground,
+                                       *outs)), stream)
+            else:
+                jrot, rot_rows = None, 0
+                if rot:
+                    key = (model, q_t.device)
+                    if key not in self._rotations:
+                        self._rotations[key] = _joint_rotations(model, q_t.device)
+                    jrot, rot_rows = self._rotations[key]
+                md_dev, tables, nlev, npairs = None, None, 0, 0
+                if not (pd or rot):
+                    md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S,
+                                                                       plank, q_t.device)
+                ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
+                       stone_radius, use_ground)
+                err = self._lib.control_step_launch(
+                    ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
+                    nlev, npairs, *(ptr(t) for t in ins + tuple(outs)), stream)
         if err != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
-        self.launches[variant(pd, plank, rot)] += 1
+        self.launches[name] += 1
         return outs
 
 

@@ -347,7 +347,7 @@ def test_engine_step_pd_matches_pallas_kernel_interpret(support_hy):
     assert info.joint_at_limit.any()
 
 
-def test_engine_step_refuses_unported_kernels(walker):
+def test_engine_step_rotated_walker_matches_jax(walker):
     """Nothing is refused any more: rotated joint frames (K4) run and match
     the JAX package's jnp path on Walker3D with rotations drawn from a seed
     (torques, discs, the Pallas test's bars), and stable PD and planks

@@ -4,7 +4,8 @@ refuses what the kernels cannot take and broadcasts unbatched operands,
 and the sources are where the builds expect them. The card-only tests
 hold the eight control-step variants (K1..K4 and their combinations)
 against their plain version and skip on a host without a GPU (run them on
-the card with `pytest --noconftest tests/test_torch_structure.py`)."""
+the card with `python3 -m pytest --noconftest tests/test_torch_structure.py`);
+K1 and K2 are control_step_warp, a warp per env."""
 
 import ast
 import dataclasses
@@ -121,7 +122,7 @@ def test_k1_wrapper_rejects_bad_inputs(case):
         step_kernel.control_step(m, *args, **kw)
 
 
-def test_k1_wrapper_refuses_rotated_frames():
+def test_wrapper_runs_rotated_frames_on_cpu():
     """Rotated joint frames are no longer refused: on the CPU the wrapper
     runs the plain version (no launch) and it matches JAX's jnp path to the
     Pallas test's bars, on tests/test_pallas_step.py's pendulum with its
@@ -164,7 +165,7 @@ def test_k1_wrapper_runs_the_plain_version_on_cpu():
     st, ref = engine._step_scan(m, engine.PhysicsState(args[0], args[1]), *args[2:])
     assert torch.equal(q, st.q) and torch.equal(qd, st.qd)
     assert torch.equal(info.foot_stone, ref.foot_stone)
-    assert step_kernel.CONTROL_STEP.launches == dict.fromkeys(step_kernel.VARIANTS, 0)
+    assert step_kernel.CONTROL_STEP.launches == dict.fromkeys(step_kernel.COUNTED, 0)
 
 
 def test_wrapper_broadcasts_unbatched_operands():
@@ -272,10 +273,30 @@ def test_k4_variants_match_plain_on_the_card(variant):
     _check_variant_on_the_card(variant)
 
 
-def _check_variant_on_the_card(variant):
+@pytest.fixture
+def card():
+    """Skips the test on a host without a CUDA card: decided when the test
+    runs, never while the module is imported."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("batch", [4096, 64])
+@pytest.mark.parametrize("variant", ["K1", "K2"])
+def test_warp_design_matches_plain_on_the_card(card, variant, batch):
+    """K1 and K2 run control_step_warp (a warp per env): against the plain
+    version at the main path's 4096 envs and at 64 (one warp on an SM),
+    counted under the variant and never as the thread-per-env design."""
+    thread = f"{variant}@thread"
+    before = step_kernel.CONTROL_STEP.launches[thread]
+    _check_variant_on_the_card(variant, batch)
+    assert step_kernel.CONTROL_STEP.launches[thread] == before
+
+
+def _check_variant_on_the_card(variant, batch=1000):
     torch.backends.cuda.matmul.allow_tf32 = False
     pd, plank, rot = step_kernel.VARIANTS[variant]
-    batch = 1000
     g = torch.Generator(device="cuda").manual_seed(7)
     m = cassie() if pd else walker3d()
     if rot:
