@@ -9,28 +9,30 @@ order; any failure exits non-zero and no phase's failure is caught:
 
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
-   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4: K1 and
-   K2 as control_step_warp, a warp per env, the others as the
-   thread-per-env template, which also keeps the thread-per-env K1 and K2
-   for timing) and ptxas's registers, stack frame and spills for each;
-   for Walker3D, control_step_warp's shared memory per block and resident
-   envs per SM
+   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4: K1,
+   K2, K3 and K2+K3 as control_step_warp<PD, PLANK>, a warp per env, the
+   K4 variants as the thread-per-env template, which also keeps the
+   thread-per-env K1, K2, K3 and K2+K3 for timing) and ptxas's registers,
+   stack frame and spills for each; control_step_warp's shared memory per
+   block and resident envs per SM for Walker3D and Cassie, on discs and
+   on planks
 3. each variant against its plain PyTorch version (engine._step_scan) on
-   the card at B=4096 and a ragged B=1000 (K2 also at 1024 and 64, the
-   round-5 Walker3D run's fleet and test fleet), on states from a short rollout
+   the card at B=4096 and a ragged B=1000 (K2 and K2+K3 also at 1024 and
+   64, the round-5 runs' fleet and test fleet), on states from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
    all occur; K1 on Walker3D torques over discs, K2 on Walker3D torques
    over LargePlank planks, K3 on Cassie stable PD over discs, K2+K3 on
    Cassie stable PD over planks, and the K4 variants on the same four
    with fixed joint rotations drawn from a seed (the repo holds no
-   full-width URDF robot); then each variant's time per launch (K2's also
-   at 1024 and 64); K1 and K2 timed in turns with their thread-per-env
-   design on the same inputs (warp, thread, thread, warp)
+   full-width URDF robot); then each variant's time per launch (K2's and
+   K2+K3's also at 1024 and 64); K1, K2, K3 and K2+K3 timed in turns with
+   their thread-per-env design on the same inputs (warp, thread, thread,
+   warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
-   the plain version, and no launch of the thread-per-env K1 or K2,
-   allowed):
+   the plain version, and no launch of a thread-per-env K1, K2, K3 or
+   K2+K3, allowed):
    - K1: Walker3D rollout, VecEnv(4096), 100 steps, exactly 100 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -64,9 +66,9 @@ order; any failure exits non-zero and no phase's failure is caught:
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
      second unbroken run
-5. one JSON line `{"kernels": [...]}` (K1 and K2 with their `design` and
-   `earlier_ms`, the thread-per-env design's time in this run), the card
-   line, and last
+5. one JSON line `{"kernels": [...]}` (K1, K2, K3 and K2+K3 with their
+   `design`, `earlier_ms`, the thread-per-env design's time in this run,
+   and `occupancy`), the card line, and last
    `{"ok": true, "device": {...}}`
 """
 
@@ -89,9 +91,10 @@ ROLLOUT_STEPS = 100
 CHECK_BATCHES = (4096, 1000)
 # the round-5 Walker3D run's fleet and test fleet (R5_W3D)
 R5_ENVS, R5_TEST_ENVS = 1024, 64
-# K2 is also held to its plain version, and timed, at the batch sizes its
-# path gives it
-PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS)}
+# K2 and K2+K3 are also held to their plain version, and timed, at the
+# batch sizes their round-5 runs give them (both take COMMON's fleet and
+# test fleet, scripts/round5_runs.sh)
+PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS), "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
 TRAIN_STEPS = 100
@@ -118,16 +121,7 @@ VARIANT_ENVS = {
     "K2+K3+K4": ("CassieStepper-v1", {"plank_class": "LargePlank"}),
 }
 ROT_SEED = 5
-# each kernel's name and template arguments as they appear in its mangled
-# name: control_step_kernel<PD, PLANK, ROT> (K1 and K2 there are the
-# thread-per-env design) and control_step_warp<PLANK>
-MANGLED = {
-    **{"control_step_kernelILb" + "ELb".join(str(int(b)) for b in flags) + "EE": v
-       for v, flags in {"K1@thread": (0, 0, 0), "K2@thread": (0, 1, 0), "K3": (1, 0, 0),
-                        "K2+K3": (1, 1, 0), "K4": (0, 0, 1), "K2+K4": (0, 1, 1),
-                        "K3+K4": (1, 0, 1), "K2+K3+K4": (1, 1, 1)}.items()},
-    "control_step_warpILb0EE": "K1", "control_step_warpILb1EE": "K2"}
-DESIGN = {"K1": "warp per env", "K2": "warp per env"}  # the others: "thread per env"
+DESIGN = dict.fromkeys(("K1", "K2", "K3", "K2+K3"), "warp per env")  # K4s: "thread per env"
 URDF_STEPS = 60
 ROT_WALKER_STEPS = 100
 ROT_PLANK_STEPS = 25
@@ -230,12 +224,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def mangled_names() -> dict:
+    """Each kernel's name and template arguments as they appear in its
+    mangled name -> its variant: control_step_kernel<PD, PLANK, ROT>
+    (without ROT the thread-per-env design, "K1@thread" ...) and
+    control_step_warp<PD, PLANK>."""
+    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
+
+    mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
+    names = {}
+    for v, (pd, plank, rot) in VARIANTS.items():
+        names[mangle("control_step_kernel", (pd, plank, rot))] = v if rot else f"{v}@thread"
+        if not rot:
+            names[mangle("control_step_warp", (pd, plank))] = v
+    return names
+
+
 def print_ptxas(build_log: str) -> None:
-    """ptxas's registers and stack frame of each kernel variant."""
-    current = "?"
+    """ptxas's registers and stack frame (with spills) of each kernel."""
+    current, names = "?", mangled_names()
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            current = next((v for m, v in MANGLED.items() if m in line), "?")
+            current = next((v for m, v in names.items() if m in line), "?")
         elif "registers" in line or "stack frame" in line:
             print(f"ptxas {current}:", line.strip(), flush=True)
 
@@ -1118,14 +1128,14 @@ def main() -> int:
     envs = {v: variant_env(v) for v in VARIANT_ENVS}
     occupancy = {}
     for variant in DESIGN:
-        model, plank = envs[variant].cfg.model, step_kernel.VARIANTS[variant][1]
+        model, (pd, plank, _) = envs[variant].cfg.model, step_kernel.VARIANTS[variant]
         n_stones = envs[variant].cfg.n_stones
         floats = step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
         occupancy[variant] = dict(
             model=model.name, stones=n_stones, bytes_per_env=4 * floats,
             smem_bytes_per_block=4 * floats * step_kernel.WARP_ENVS,
             envs_per_block=step_kernel.WARP_ENVS,
-            envs_per_sm=step_kernel.CONTROL_STEP.warp_envs_per_sm(model, n_stones, plank),
+            envs_per_sm=step_kernel.CONTROL_STEP.warp_envs_per_sm(model, n_stones, pd, plank),
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
     print("control_step_warp occupancy:", json.dumps(occupancy), flush=True)
     checks, timings, path_timings = {}, {}, {}

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where control_step_warp (kernels K1 and K2) spends its cycles, on one
-NVIDIA GPU.
+"""Where control_step_warp<PD, PLANK> (kernels K1, K2, K3 and K2+K3)
+spends its cycles, on one NVIDIA GPU.
 
     python3 scripts/kernel_sections.py [--batches 64,4096] [--source PATH]
+        [--variants K1,K2,K3,K2+K3]
 
 Builds, for this measurement only, a copy of the kernel source (default:
 steppingstone_tpu_torch/csrc/control_step.cu) with clock64() stamps at
 each `// ---- <section>` comment of control_step_warp's substep loop, at
 the loop's start and end and at the kernel's end; each stamp first waits
 for the warp (__syncwarp), and lane 0 adds the cycles since the last stamp
-to its section's counter. Runs K1 (Walker3D over discs) and K2 (Walker3D
-over LargePlank planks) on the inputs chip_smoke.py checks them on, at each
-batch size, and prints one JSON line per kernel and batch: the mean cycles
-per warp and launch of each section (the loop's sections summed over the
-substeps), their sum and shares, and the kernel's time per launch built
-from the source as it is and stamped.
+to its section's counter. Runs K1 (Walker3D torques over discs), K2
+(Walker3D torques over LargePlank planks), K3 (Cassie stable PD over
+discs) and K2+K3 (Cassie stable PD over LargePlank planks) on the inputs
+chip_smoke.py checks them on, at each batch size. Prints ptxas's registers,
+stack frame and spills of the source as it is, then one JSON line per
+kernel and batch: the mean cycles per warp and launch of each section (the
+loop's sections summed over the substeps), their sum and shares, the
+kernel's time per launch built from the source as it is and stamped, and
+its resident envs per SM (the occupancy calculator). `--source` measures
+another version of the kernel, such as one with other launch bounds.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ def stamp(k: int) -> str:
 def stamped_source(src: str):
     """The source with control_step_warp's sections stamped, and the
     sections' names in counter order."""
-    start = src.index("template <bool PLANK>\n__global__ void")
+    start = src.index("template <bool PD, bool PLANK>\n__global__ void")
     end = src.index("template <bool PD, bool PLANK, bool ROT>\nstatic void launch(")
     body = src[start:end]
     names = ["set-up (loads, stone normals and axes)"]
@@ -92,6 +97,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="64,4096")
     ap.add_argument("--source", default=str(step_kernel.SOURCE))
+    ap.add_argument("--variants", default="K1,K2,K3,K2+K3")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_sections: no CUDA device is available", file=sys.stderr)
@@ -107,17 +113,20 @@ def main(argv=None) -> int:
         stamped = step_kernel.ControlStepKernel(source=stamped_src)
         for kern in (plain, stamped):
             kern.build()
+    cs.print_ptxas(plain.build_log)
     read = stamped._lib.section_cycles_read
     read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_int]
     counts = (ctypes.c_ulonglong * 32)()
-    for variant in ("K1", "K2"):
+    for variant in args.variants.split(","):
         env = cs.variant_env(variant)
-        model = env.cfg.model
+        model, (pd, plank, _) = env.cfg.model, step_kernel.VARIANTS[variant]
+        envs_per_sm = plain.warp_envs_per_sm(model, env.cfg.n_stones, pd, plank)
         for batch in (int(b) for b in args.batches.split(",")):
             inputs, kw = cs.kernel_inputs(env, batch, seed=batch)
             soa = step_kernel.to_kernel_layout(*inputs)
+            pd_kw = dict(target_t=kw["target"].t().contiguous(), power=kw["power"]) if pd else {}
             run = lambda kern: kern.launch(model, *soa, env.cfg.contact, engine.SUBSTEPS,
-                                           support_hy=kw.get("support_hy"))
+                                           support_hy=kw.get("support_hy"), **pd_kw)
             ms = cs.cuda_ms(lambda: run(plain), cs.TIMED_LAUNCHES)
             stamped_ms = cs.cuda_ms(lambda: run(stamped), cs.TIMED_LAUNCHES)
             if read(counts, 1):
@@ -130,7 +139,8 @@ def main(argv=None) -> int:
             sections = {name: counts[k] / batch for k, name in enumerate(names)}
             total = sum(sections.values())
             print(json.dumps(dict(variant=variant, batch=batch, ms=ms, stamped_ms=stamped_ms,
-                                  cycles_per_warp=total, sections=sections,
+                                  envs_per_sm=envs_per_sm, cycles_per_warp=total,
+                                  sections=sections,
                                   share={n: c / total for n, c in sections.items()})),
                   flush=True)
     return 0

@@ -1,11 +1,13 @@
-"""The host side of `control_step_warp` (kernels K1 and K2, a warp per
-env), checked on the CPU: the model's tables (bodies by tree level, each
-body's children, the mass matrix's ancestor pattern), the per-env layout of
-the scratch in shared memory against the kernel's source, a walk of the
-tables in PyTorch against the port's kinematics and mass matrix (1e-6), and
-the lanes' search for each sphere's first maximum against the serial loop
-(exact). The kernel itself runs only on the card
-(tests/test_torch_structure.py, `chip_smoke.py`)."""
+"""The host side of `control_step_warp<PD, PLANK>` (kernels K1, K2, K3 and
+K2+K3, a warp per env), checked on the CPU: the model's tables (bodies by
+tree level, each body's children, the mass matrix's ancestor pattern), the
+per-env layout of the scratch in shared memory against the kernel's
+source, the launch entries' dispatch of (pd, plank, rot) to the template
+instantiations in the source, a walk of the tables in PyTorch against the
+port's kinematics and mass matrix (1e-6), and the lanes' search for each
+sphere's first maximum against the serial loop (exact). The kernel itself
+runs only on the card (tests/test_torch_structure.py, `chip_smoke.py`) and
+under a warp emulation (tests/test_torch_warp_emulation.py)."""
 
 import math
 import re
@@ -124,6 +126,8 @@ def test_warp_layout_matches_the_kernel(name, plank):
     assert SK.WARP_ENVS * 4 * floats <= SMEM_PER_BLOCK
     if name == "walker3d":
         assert 4 * floats == (7848 if plank else 7368)
+    if name == "cassie":  # stable PD adds no shared memory
+        assert 4 * floats == (5384 if plank else 4904)
 
 
 def test_table_and_block_constants_match_the_kernel():
@@ -134,6 +138,45 @@ def test_table_and_block_constants_match_the_kernel():
     for name in ("T_LEVEL", "T_ORDER", "T_CHILD", "T_CHILDREN", "T_PAIRS", "T_SIZE"):
         env[name] = eval(_c_to_python(defines[name]), {}, env)
         assert env[name] == getattr(SK, name), name
+
+
+def _dispatch(body):
+    """switch case -> (the instantiated function, its bool template
+    arguments) in a body that switches on (pd ? 2 : 0) | (plank ? 1 : 0)."""
+    assert "switch ((pd ? 2 : 0) | (plank ? 1 : 0))" in body
+    cases = re.findall(r"(case \d+|default): (?:err = )?(\w+)<(\w+), (\w+)(?:, (\w+))?>", body)
+    return {3 if key == "default" else int(key.split()[1]):
+            (fn, tuple(f == "true" for f in flags if f)) for key, fn, *flags in cases}
+
+
+# each launch entry's body in csrc/control_step.cu (from, to) and what it
+# instantiates for (pd, plank): the warp design without ROT, the
+# thread-per-env body with ROT (the K4 variants) and for the paired timing
+DISPATCH = {
+    "warp launch": (("int control_step_launch(", "#undef WARP_ARGS"),
+                    lambda pd, plank: ("launch_warp", (pd, plank))),
+    "K4 launch": (("#undef WARP_ARGS", "int control_step_launch_thread("),
+                  lambda pd, plank: ("launch", (pd, plank, True))),
+    "thread-per-env timing": (("int control_step_launch_thread(", '}  // extern "C"'),
+                              lambda pd, plank: ("launch", (pd, plank, False))),
+    "occupancy": (("int control_step_warp_envs_per_sm(", "int control_step_launch("),
+                  lambda pd, plank: ("warp_blocks_per_sm", (pd, plank))),
+}
+
+
+@pytest.mark.parametrize("entry", list(DISPATCH))
+def test_launch_entries_dispatch_each_variant(entry):
+    """Each (pd, plank) reaches its own instantiation: K1, K2, K3 and K2+K3
+    control_step_warp<PD, PLANK>, the K4 variants and the thread-per-env
+    timing control_step_kernel<PD, PLANK, ROT>."""
+    src = SK.SOURCE.read_text()
+    assert "template <bool PD, bool PLANK>\n__global__ void __launch_bounds__" in src
+    (start, end), expect = DISPATCH[entry]
+    body = src[src.index(start):]
+    body = body[:body.index(end, 1)]
+    cases = _dispatch(body)
+    assert cases == {2 * pd + plank: expect(pd, plank)
+                     for pd in (False, True) for plank in (False, True)}
 
 
 @pytest.mark.parametrize("name", list(MODELS))

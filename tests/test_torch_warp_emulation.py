@@ -1,25 +1,39 @@
-"""control_step_warp (kernels K1 and K2) run on the CPU, where there is no
-card: the kernel's part of csrc/control_step.cu is compiled with the host
-C++ compiler against tests/warp_emulation.h, which runs each lane as a
-thread and meets a warp's lanes at a barrier for __syncwarp and the
-shuffles, block after block. Its outputs are held to the plain version
-(engine._step_scan) with the Pallas kernel's bars (q 2e-4, qd 2e-3/2e-2,
-foot force 1e-2/1.0), contact_force_sum (1e-3/1.0) and the diagnostics
-exactly, on Walker3D and Cassie torques over discs and planks and on a
-2-body pendulum over 6 stones (2 spheres, so 16 lanes a sphere), at ragged
-batches (the last block has idle warps). This checks the kernel's lane
-mapping, indexing, tables and synchronisation; its speed and the CUDA
-compiler's view of it only the card shows (tests/test_torch_structure.py,
-chip_smoke.py)."""
+"""control_step_warp<PD, PLANK> (kernels K1, K2, K3 and K2+K3) run on the
+CPU, where there is no card: the kernel's part of csrc/control_step.cu is
+compiled with the host C++ compiler against tests/warp_emulation.h, which
+runs each lane as a thread and meets a warp's lanes at a barrier for
+__syncwarp and the shuffles, block after block. Its outputs are held to
+the plain version (engine._step_scan) with the Pallas kernel's bars (q
+2e-4, qd 2e-3/2e-2, foot force 1e-2/1.0), contact_force_sum (1e-3/1.0) and
+the diagnostics exactly: on Walker3D and Cassie torques over discs and
+planks, on Cassie stable PD over discs and planks, on a 2-body pendulum
+over 6 stones (2 spheres, so 16 lanes a sphere) and on a PD pendulum whose
+one joint has only kp and the other only kd (the gate kp != 0 || kd != 0),
+at ragged batches (the last block has idle warps). The emulated K3 and
+K2+K3 are also held to the JAX Pallas kernel's `pd=True` variant in
+interpret mode (the bars of tests/test_torch_physics.py) on a slice of its
+1024-env tile. This checks the kernel's lane mapping, indexing, tables,
+synchronisation and PD terms; its speed and the CUDA compiler's view of it
+only the card shows (tests/test_torch_structure.py, chip_smoke.py)."""
 
 import ctypes
 import shutil
 import subprocess
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+from test_torch_physics import _check_step, _pd_draws, _pd_pendulum
+from test_torch_physics import _inputs as _jax_inputs  # numpy inputs, JAX's default state
 
+from steppingstone_tpu.physics import contact as jct
+from steppingstone_tpu.physics import dynamics as jdyn
+from steppingstone_tpu.physics import engine as jeng
+from steppingstone_tpu.physics import pallas_step
+from steppingstone_tpu.physics.model import build_model as jbuild
 from steppingstone_tpu_torch.physics import engine, step_kernel
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.model import build_model
@@ -37,10 +51,27 @@ HARNESS = r"""
 float smem[1 << 18];  // the kernel's extern __shared__ array
 #include "kernel_part.inc"
 
-extern "C" int emulate_warp(const ModelData* m, int B, int S, int plank, float hy_margin,
+typedef void (*LaneBody)(const ModelData*, const WarpLayout&, int, int, float, int, int, const int*,
+                     const float*, const float*, const float*, const float*, const float*,
+                     const float*, const float*, const float*, float*, float*, float*);
+
+template <bool PD, bool PLANK>
+void lane_body(const ModelData* m, const WarpLayout& lay, int B, int S, float hy_margin, int nlev,
+          int npairs, const int* tab, const float* q, const float* qd, const float* tau,
+          const float* target, const float* power, const float* st, const float* sr,
+          const float* ug, float* q_out, float* qd_out, float* info_out) {
+  control_step_warp<PD, PLANK>(*m, m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau, target,
+                               power, st, sr, ug, q_out, qd_out, info_out);
+}
+
+extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank, float hy_margin,
                             int nlev, int npairs, const int* tab, const float* q,
-                            const float* qd, const float* tau, const float* st, const float* sr,
+                            const float* qd, const float* tau, const float* target,
+                            const float* power, const float* st, const float* sr,
                             const float* ug, float* q_out, float* qd_out, float* info_out) {
+  const LaneBody bodies[4] = {lane_body<false, false>, lane_body<false, true>,
+                              lane_body<true, false>, lane_body<true, true>};
+  const LaneBody run = bodies[2 * (pd != 0) + (plank != 0)];
   const WarpLayout lay = warp_layout(m->nb, m->nc, S, plank != 0);
   if ((long)WARP_ENVS * lay.size > (long)(sizeof(smem) / sizeof(float))) return -1;
   for (int b = 0; b < (B + WARP_ENVS - 1) / WARP_ENVS; ++b) {
@@ -54,12 +85,8 @@ extern "C" int emulate_warp(const ModelData* m, int B, int S, int plank, float h
         blockIdx.x = b;
         blockDim.x = WARP_ENVS * 32;
         this_warp = warps[t >> 5].get();
-        if (plank)
-          control_step_warp<true>(*m, m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau, st,
-                                  sr, ug, q_out, qd_out, info_out);
-        else
-          control_step_warp<false>(*m, m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau,
-                                   st, sr, ug, q_out, qd_out, info_out);
+        run(m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau, target, power, st, sr, ug,
+            q_out, qd_out, info_out);
       });
     for (auto& lane : lanes) lane.join();
   }
@@ -83,9 +110,33 @@ def emulated(tmp_path_factory):
                     "-o", str(lib), str(tmp / "harness.cpp")], check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).emulate_warp
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10)
+    fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12)
     return fn
+
+
+def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
+    """One control step of the emulated control_step_warp on (B, k) inputs
+    as control_step takes them -> (q, qd, engine.StepInfo)."""
+    cp, (batch, n_stones) = ContactParams(), args[3].shape[:2]
+    pd, plank = target is not None, support_hy is not None
+    md = step_kernel._model_data(model, cp, engine.SUBSTEPS)
+    tab, nlev, npairs = step_kernel.kernel_tables(model)
+    soa = step_kernel.to_kernel_layout(*args)
+    pd_ins = (target.t().contiguous(), power) if pd else (None, None)
+    ins = (torch.as_tensor(tab), *soa[:3], *pd_ins, *soa[3:])
+    outs = [torch.empty((n, batch)) for n in (model.nq, model.ndof, model.njoints + 7)]
+    hy_margin = float(support_hy) + cp.margin if plank else 0.0
+    ptr = lambda t: None if t is None else t.data_ptr()
+    size = emulated(ctypes.byref(md), batch, n_stones, int(pd), int(plank), hy_margin, nlev,
+                    npairs, *(ptr(t) for t in (*ins, *outs)))
+    assert size == step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
+    q, qd, info = outs[0].t(), outs[1].t(), outs[2]
+    nj = model.njoints
+    return q, qd, engine.StepInfo(
+        foot_contact=info[0:2].t() > 0.0, foot_stone=info[2:4].t().long(),
+        foot_normal_force=info[4:6].t(), joint_at_limit=info[6:6 + nj].t() > 0.5,
+        contact_force_sum=info[6 + nj])
 
 
 def _pendulum():
@@ -99,14 +150,31 @@ def _pendulum():
     return build_model("pendulum", bodies, contacts)
 
 
+def _gate_pendulum():
+    """A two-link PD pendulum as long as the one above: the upper joint has
+    only kp, the lower only kd (the kernel's gate kp != 0 || kd != 0)."""
+    link = dict(mass=0.5, com=(0, 0, -0.25), inertia=(0.01, 0.01, 0.01), damping=0.1,
+                limits=(-2.0, 2.0), torque_limit=45.0)
+    bodies = [
+        dict(name="base", mass=5.0, inertia=(0.5, 0.5, 0.5), root_height=1.0),
+        dict(name="upper", parent="base", anchor=(0, 0, 0), axis=(0, 1, 0), kp=60.0, **link),
+        dict(name="lower", parent="upper", anchor=(0, 0, -0.25), axis=(1, 0, 0), kd=6.0, **link),
+    ]
+    contacts = [dict(body="lower", offset=(0, 0, -0.25), radius=0.05),
+                dict(body="base", offset=(0, 0, -0.1), radius=0.05)]
+    return build_model("pd_gate_pendulum", bodies, contacts)
+
+
 def _inputs(model, batch, n_stones, plank, seed):
     """Perturbed standing states over a field of tilted stones, lowered so
     that feet touch stones and the ground; the first env and about a
     quarter of the others with the first joint past its upper limit; planks
-    shift half the envs sideways."""
+    shift half the envs sideways. Returns (args, PD target, PD power), the
+    target from random actions (some beyond [-1, 1]) and the power in
+    [0.5, 1]."""
     g = torch.Generator().manual_seed(seed)
     q = engine.default_state(model, batch).q.clone()
-    q[:, 2] -= 0.15 if model.name != "pendulum" else 0.47
+    q[:, 2] -= 0.15 if "pendulum" not in model.name else 0.47
     q[:, 7:] += 0.1 * torch.randn(q[:, 7:].shape, generator=g)
     past = torch.rand(batch, generator=g) < 0.25
     past[0] = True
@@ -121,46 +189,83 @@ def _inputs(model, batch, n_stones, plank, seed):
         q[:, 1] += (torch.rand(batch, generator=g) < 0.5) * (2.4 * torch.rand(batch, generator=g)
                                                              - 1.2)
     tau = 20 * torch.randn(batch, model.njoints, generator=g)
-    return [q, qd, tau, stones, torch.full((batch,), 0.25),
+    args = [q, qd, tau, stones, torch.full((batch,), 0.25),
             torch.rand(batch, generator=g) < 0.5]
+    action = 2.4 * torch.rand(batch, model.action_dim, generator=g) - 1.2
+    power = 0.5 + 0.5 * torch.rand(batch, generator=g)
+    return args, engine.pd_target_from_action(model, action), power
 
 
-CASES = {
-    "walker3d_disc": (walker3d, False, 20, 6),
-    "walker3d_plank": (walker3d, True, 20, 6),
-    "walker3d_plank_7_stones": (walker3d, True, 7, 5),
-    "cassie_disc": (cassie, False, 20, 5),
-    "cassie_plank": (cassie, True, 20, 6),
-    "pendulum_disc": (_pendulum, False, 6, 5),
+CASES = {  # model, planks, stone count, batch, stable PD
+    "walker3d_disc": (walker3d, False, 20, 6, False),
+    "walker3d_plank": (walker3d, True, 20, 6, False),
+    "walker3d_plank_7_stones": (walker3d, True, 7, 5, False),
+    "cassie_disc": (cassie, False, 20, 5, False),
+    "cassie_plank": (cassie, True, 20, 6, False),
+    "pendulum_disc": (_pendulum, False, 6, 5, False),
+    "cassie_pd_disc": (cassie, False, 20, 7, True),
+    "cassie_pd_plank": (cassie, True, 20, 6, True),
+    "pd_gate_pendulum_disc": (_gate_pendulum, False, 6, 5, True),
+    "pd_gate_pendulum_plank": (_gate_pendulum, True, 6, 7, True),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulated_warp_kernel_matches_plain(emulated, case):
     torch.set_num_threads(1)
-    make, plank, n_stones, batch = CASES[case]
+    make, plank, n_stones, batch, pd = CASES[case]
     model, cp = make(), ContactParams()
-    args = _inputs(model, batch, n_stones, plank, seed=len(case))
+    args, target, power = _inputs(model, batch, n_stones, plank, seed=len(case))
     hy = 1.5 if plank else None
-    md = step_kernel._model_data(model, cp, engine.SUBSTEPS)
-    tab, nlev, npairs = step_kernel.kernel_tables(model)
-    soa = step_kernel.to_kernel_layout(*args)
-    outs = [torch.empty((n, batch)) for n in (model.nq, model.ndof, model.njoints + 7)]
-    hy_margin = float(hy) + cp.margin if plank else 0.0
-    size = emulated(ctypes.byref(md), batch, n_stones, int(plank), hy_margin, nlev, npairs,
-                    *(t.data_ptr() for t in (torch.as_tensor(tab), *soa, *outs)))
-    assert size == step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
+    pd_kw = dict(target=target, power=power) if pd else {}
+    q, qd, info = _emulate(emulated, model, args, support_hy=hy, **pd_kw)
     st, ref = engine._step_scan(model, engine.PhysicsState(args[0], args[1]), *args[2:],
-                                cp, support_hy=hy)
-    q, qd, info = outs[0].t(), outs[1].t(), outs[2]
-    nj = model.njoints
+                                cp, pd=(target, power) if pd else None, support_hy=hy)
     torch.testing.assert_close(q, st.q, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(qd, st.qd, rtol=2e-3, atol=2e-2)
-    torch.testing.assert_close(info[4:6].t(), ref.foot_normal_force, rtol=1e-2, atol=1.0)
-    torch.testing.assert_close(info[6 + nj], ref.contact_force_sum, rtol=1e-3, atol=1.0)
-    assert torch.equal(info[0:2].t() > 0.0, ref.foot_contact)
-    assert torch.equal(info[2:4].t().long(), ref.foot_stone)
-    assert torch.equal(info[6:6 + nj].t() > 0.5, ref.joint_at_limit)
-    if model.name != "pendulum":  # contacts, stones and limits engage
+    torch.testing.assert_close(info.foot_normal_force, ref.foot_normal_force, rtol=1e-2, atol=1.0)
+    torch.testing.assert_close(info.contact_force_sum, ref.contact_force_sum, rtol=1e-3, atol=1.0)
+    assert torch.equal(info.foot_contact, ref.foot_contact)
+    assert torch.equal(info.foot_stone, ref.foot_stone)
+    assert torch.equal(info.joint_at_limit, ref.joint_at_limit)
+    if "pendulum" not in model.name:  # contacts, stones and limits engage
         assert (ref.contact_force_sum > 0).any() and (ref.foot_stone >= 0).any()
         assert ref.joint_at_limit.any()
+    if model.name == "pd_gate_pendulum":
+        # the kp-only and the kd-only joint each move otherwise without PD
+        kp, kd, _ = engine.pd_gains(model, "cpu")
+        assert kp.tolist() == [60.0, 0.0] and kd.tolist() == [0.0, 6.0]
+        free, _ = engine._step_scan(model, engine.PhysicsState(args[0], args[1]), *args[2:],
+                                    cp, pd=(target, 0.0 * power), support_hy=hy)
+        assert ((st.qd[:, 6:] - free.qd[:, 6:]).abs() > 1e-2).all()
+
+
+@pytest.mark.parametrize("support_hy", [None, 0.6])
+def test_emulated_pd_kernel_matches_pallas_interpret(emulated, support_hy):
+    """The emulated K3 (discs) and K2+K3 (planks of half-width 0.6) against
+    the TPU kernel's `pd=True` variant itself, run in interpret mode at one
+    1024-env tile on the PD pendulum with the inputs of
+    tests/test_torch_physics.py's Pallas PD test; the first 30 envs of the
+    tile are emulated (a ragged last block) and held to the Pallas test's
+    bars."""
+    torch.set_num_threads(1)
+    slice_ = 30
+    mj, mt = _pd_pendulum(jbuild), _pd_pendulum(build_model)
+    n = pallas_step.TILE
+    rng = np.random.default_rng(10)
+    q, qd, _, stones, sr, ug = _jax_inputs(rng, mj, b=n, n_stones=6, drop=0.47, stone_drop=0.0)
+    q[::3, 7] = 2.05  # a third of the arms start past the joint limit
+    action, power = _pd_draws(rng, mj, n)
+    target = np.array(jax.vmap(lambda a: jeng.pd_target_from_action(mj, a))(action))
+    tau = np.zeros((n, mj.njoints), np.float32)
+    fn = pallas_step.build_batched_step(
+        mj, jct.ContactParams(), 4, 6, jeng.SIM_DT, jeng.LIMIT_K, jeng.LIMIT_C,
+        jeng.MAX_QD, jdyn.GRAVITY, interpret=True, pd=True, support_hy=support_hy)
+    qn, qdn, d = fn(*(jnp.asarray(x) for x in (q, qd, tau, target, power, stones, sr, ug)))
+    ref = jax.tree.map(lambda x: np.asarray(x)[:slice_], (qn, qdn, jeng.StepInfo(**d)))
+    args = [torch.as_tensor(x[:slice_]) for x in (q, qd, tau, stones, sr, ug)]
+    out = _emulate(emulated, mt, args, target=torch.as_tensor(target[:slice_]),
+                   power=torch.as_tensor(power[:slice_]), support_hy=support_hy)
+    _check_step(out, ref)
+    info = out[2]
+    assert (info.contact_force_sum > 0).any() and info.joint_at_limit.any()
