@@ -10,12 +10,13 @@ order; any failure exits non-zero and no phase's failure is caught:
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
    the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4: K1,
-   K2, K3 and K2+K3 as control_step_warp<PD, PLANK>, a warp per env, the
-   K4 variants as the thread-per-env template, which also keeps the
-   thread-per-env K1, K2, K3 and K2+K3 for timing) and ptxas's registers,
-   stack frame and spills for each; control_step_warp's shared memory per
-   block and resident envs per SM for Walker3D and Cassie, on discs and
-   on planks
+   K2, K3, K2+K3, K4 and K3+K4 as control_step_warp<PD, PLANK, ROT>, a
+   warp per env, K2+K4 and K2+K3+K4 as the thread-per-env template, which
+   also keeps the thread-per-env versions of the other six for timing)
+   and ptxas's registers, stack frame and spills for each;
+   control_step_warp's shared memory per block and resident envs per SM
+   for Walker3D and Cassie on discs and on planks, and for both with
+   rotated frames on discs
 3. each variant against its plain PyTorch version (engine._step_scan) on
    the card at B=4096 and a ragged B=1000 (K2 and K2+K3 also at 1024 and
    64, the round-5 runs' fleet and test fleet), on states from a short rollout
@@ -26,13 +27,13 @@ order; any failure exits non-zero and no phase's failure is caught:
    Cassie stable PD over planks, and the K4 variants on the same four
    with fixed joint rotations drawn from a seed (the repo holds no
    full-width URDF robot); then each variant's time per launch (K2's and
-   K2+K3's also at 1024 and 64); K1, K2, K3 and K2+K3 timed in turns with
-   their thread-per-env design on the same inputs (warp, thread, thread,
-   warp)
+   K2+K3's also at 1024 and 64); K1, K2, K3, K2+K3, K4 and K3+K4 timed in
+   turns with their thread-per-env design on the same inputs (warp,
+   thread, thread, warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
-   the plain version, and no launch of a thread-per-env K1, K2, K3 or
-   K2+K3, allowed):
+   the plain version, and no launch of the thread-per-env design of a
+   warp-per-env variant, allowed):
    - K1: Walker3D rollout, VecEnv(4096), 100 steps, exactly 100 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -66,9 +67,9 @@ order; any failure exits non-zero and no phase's failure is caught:
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
      second unbroken run
-5. one JSON line `{"kernels": [...]}` (K1, K2, K3 and K2+K3 with their
-   `design`, `earlier_ms`, the thread-per-env design's time in this run,
-   and `occupancy`), the card line, and last
+5. one JSON line `{"kernels": [...]}` (each variant with its `design`;
+   K1, K2, K3, K2+K3, K4 and K3+K4 with `earlier_ms`, the thread-per-env
+   design's time in this run, and `occupancy`), the card line, and last
    `{"ok": true, "device": {...}}`
 """
 
@@ -121,7 +122,6 @@ VARIANT_ENVS = {
     "K2+K3+K4": ("CassieStepper-v1", {"plank_class": "LargePlank"}),
 }
 ROT_SEED = 5
-DESIGN = dict.fromkeys(("K1", "K2", "K3", "K2+K3"), "warp per env")  # K4s: "thread per env"
 URDF_STEPS = 60
 ROT_WALKER_STEPS = 100
 ROT_PLANK_STEPS = 25
@@ -226,17 +226,22 @@ def cuda_ms(fn, reps: int) -> float:
 
 def mangled_names() -> dict:
     """Each kernel's name and template arguments as they appear in its
-    mangled name -> its variant: control_step_kernel<PD, PLANK, ROT>
-    (without ROT the thread-per-env design, "K1@thread" ...) and
-    control_step_warp<PD, PLANK>."""
-    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
+    mangled name -> its variant: control_step_warp<PD, PLANK, ROT> (and
+    control_step_warp<PD, PLANK> of sources before ROT, for
+    scripts/compare_sources.py's baselines) and control_step_kernel<PD,
+    PLANK, ROT> (the thread-per-env design, "K1@thread" ..., of a variant
+    that runs the warp design)."""
+    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS, WARP_DESIGN
 
     mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
     names = {}
     for v, (pd, plank, rot) in VARIANTS.items():
-        names[mangle("control_step_kernel", (pd, plank, rot))] = v if rot else f"{v}@thread"
+        on_warp = v in WARP_DESIGN
+        names[mangle("control_step_kernel", (pd, plank, rot))] = f"{v}@thread" if on_warp else v
+        if on_warp:
+            names[mangle("control_step_warp", (pd, plank, rot))] = v
         if not rot:
-            names[mangle("control_step_warp", (pd, plank))] = v
+            names[mangle("control_step_warp", (pd, plank))] = f"{v} (before ROT)"
     return names
 
 
@@ -527,7 +532,7 @@ def time_variant(env, variant: str, args, kw) -> dict:
     cp = env.cfg.contact
     launch = lambda **k: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw, **k)
     earlier = {}
-    if variant in DESIGN:
+    if variant in step_kernel.WARP_DESIGN:
         # in turns with the thread-per-env design on the same inputs: warp,
         # thread, thread, warp
         turns = [cuda_ms(lambda: launch(thread_design=thread), TIMED_LAUNCHES)
@@ -1127,15 +1132,16 @@ def main() -> int:
 
     envs = {v: variant_env(v) for v in VARIANT_ENVS}
     occupancy = {}
-    for variant in DESIGN:
-        model, (pd, plank, _) = envs[variant].cfg.model, step_kernel.VARIANTS[variant]
+    for variant in step_kernel.WARP_DESIGN:
+        model, (pd, plank, rot) = envs[variant].cfg.model, step_kernel.VARIANTS[variant]
         n_stones = envs[variant].cfg.n_stones
         floats = step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
         occupancy[variant] = dict(
             model=model.name, stones=n_stones, bytes_per_env=4 * floats,
             smem_bytes_per_block=4 * floats * step_kernel.WARP_ENVS,
             envs_per_block=step_kernel.WARP_ENVS,
-            envs_per_sm=step_kernel.CONTROL_STEP.warp_envs_per_sm(model, n_stones, pd, plank),
+            envs_per_sm=step_kernel.CONTROL_STEP.warp_envs_per_sm(model, n_stones, pd, plank,
+                                                                  rot),
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
     print("control_step_warp occupancy:", json.dumps(occupancy), flush=True)
     checks, timings, path_timings = {}, {}, {}
@@ -1179,7 +1185,7 @@ def main() -> int:
             replaces="steppingstone_tpu/physics/pallas_step.py:733",
             specialization=f"pd={pd}, support_hy={1.5 if plank else None}, "
                            f"joint_rot={'set' if rot else None}",
-            design=DESIGN.get(variant, "thread per env"),
+            design="warp per env" if variant in step_kernel.WARP_DESIGN else "thread per env",
             launches=paths[variant]["launches"],
             other_paths=other_paths.get(variant, {}),
             max_abs_err=max(max(x["max_q_err"], x["max_qd_err"]) for x in c),

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where control_step_warp<PD, PLANK> (kernels K1, K2, K3 and K2+K3)
-spends its cycles, on one NVIDIA GPU.
+"""Where control_step_warp<PD, PLANK, ROT> (kernels K1, K2, K3, K2+K3, K4
+and K3+K4) spends its cycles, on one NVIDIA GPU.
 
     python3 scripts/kernel_sections.py [--batches 64,4096] [--source PATH]
-        [--variants K1,K2,K3,K2+K3]
+        [--variants K1,K2,K3,K2+K3,K4,K3+K4]
 
 Builds, for this measurement only, a copy of the kernel source (default:
 steppingstone_tpu_torch/csrc/control_step.cu) with clock64() stamps at
@@ -12,7 +12,9 @@ the loop's start and end and at the kernel's end; each stamp first waits
 for the warp (__syncwarp), and lane 0 adds the cycles since the last stamp
 to its section's counter. Runs K1 (Walker3D torques over discs), K2
 (Walker3D torques over LargePlank planks), K3 (Cassie stable PD over
-discs) and K2+K3 (Cassie stable PD over LargePlank planks) on the inputs
+discs), K2+K3 (Cassie stable PD over LargePlank planks), K4 (Walker3D
+torques over discs with fixed joint rotations drawn from a seed) and
+K3+K4 (Cassie stable PD over discs, rotated alike) on the inputs
 chip_smoke.py checks them on, at each batch size. Prints ptxas's registers,
 stack frame and spills of the source as it is, then one JSON line per
 kernel and batch: the mean cycles per warp and launch of each section (the
@@ -59,8 +61,9 @@ def stamp(k: int) -> str:
 def stamped_source(src: str):
     """The source with control_step_warp's sections stamped, and the
     sections' names in counter order."""
-    start = src.index("template <bool PD, bool PLANK>\n__global__ void")
-    end = src.index("template <bool PD, bool PLANK, bool ROT>\nstatic void launch(")
+    # from control_step_warp's template line to the thread-per-env launch's
+    start = src.rindex("template <", 0, src.index("control_step_warp(const __grid_constant__"))
+    end = src.rindex("template <", 0, src.index("static void launch("))
     body = src[start:end]
     names = ["set-up (loads, stone normals and axes)"]
     body = body.replace("  if (e >= B) return;  // the whole warp: no other warp waits on it\n",
@@ -97,7 +100,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="64,4096")
     ap.add_argument("--source", default=str(step_kernel.SOURCE))
-    ap.add_argument("--variants", default="K1,K2,K3,K2+K3")
+    ap.add_argument("--variants", default="K1,K2,K3,K2+K3,K4,K3+K4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_sections: no CUDA device is available", file=sys.stderr)
@@ -119,8 +122,8 @@ def main(argv=None) -> int:
     counts = (ctypes.c_ulonglong * 32)()
     for variant in args.variants.split(","):
         env = cs.variant_env(variant)
-        model, (pd, plank, _) = env.cfg.model, step_kernel.VARIANTS[variant]
-        envs_per_sm = plain.warp_envs_per_sm(model, env.cfg.n_stones, pd, plank)
+        model, (pd, plank, rot) = env.cfg.model, step_kernel.VARIANTS[variant]
+        envs_per_sm = plain.warp_envs_per_sm(model, env.cfg.n_stones, pd, plank, rot)
         for batch in (int(b) for b in args.batches.split(",")):
             inputs, kw = cs.kernel_inputs(env, batch, seed=batch)
             soa = step_kernel.to_kernel_layout(*inputs)

@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernel steppingstone_tpu/physics/pallas_step.py
 // (`build_batched_step`, the pallas_call at pallas_step.py:733) in all its
-// specializations. K1, K2, K3 and K2+K3 run `control_step_warp<PD, PLANK>`
-// (a warp per env, below); the K4 variants run compile-time variants of
-// one thread-per-env body, `control_step_kernel<PD, PLANK, ROT>`, whose
-// flags name every variant:
+// specializations. K1, K2, K3, K2+K3, K4 and K3+K4 run
+// `control_step_warp<PD, PLANK, ROT>` (a warp per env, below); K2+K4 and
+// K2+K3+K4 run compile-time variants of one thread-per-env body,
+// `control_step_kernel<PD, PLANK, ROT>`. The flags name every variant:
 //   K1    <false, false, false>  torque actuation, disc support
 //   K2    <false, true, false>   plank support (`support_hy`, pallas_step.py:
 //                                420-431, 648-657): each stone's in-plane axes
@@ -27,9 +27,9 @@
 //                                product (no snapping: the Pallas kernel's
 //                                snap moves values by < 1e-12, below fp32)
 //   and their combinations K2+K3, K2+K4, K3+K4, K2+K3+K4.
-// The thread-per-env K1, K2, K3 and K2+K3 (<PD, PLANK, false>) stay built
-// behind `control_step_launch_thread`, only to time the two designs
-// against each other on the same inputs.
+// The thread-per-env K1, K2, K3, K2+K3, K4 and K3+K4 stay built behind
+// `control_step_launch_thread`, only to time the two designs against each
+// other on the same inputs.
 // It computes the same function as the plain PyTorch version
 // `engine._step_scan` of this package and follows that version's order of
 // operations: stones are tested in order and the ground last, with the
@@ -52,12 +52,12 @@
 // and the per-env scratch (body frames, packed mass matrix, 12.6-13.4 KB a
 // thread) in local memory. 4096 envs fill only ~1 warp per SM scheduler
 // and nothing hides the scratch's trips to L2, so it is latency-bound and
-// far from that floor; `control_step_warp` below is the answer for K1, K2,
-// K3 and K2+K3.
+// far from that floor; `control_step_warp` below is the answer for all but
+// K2+K4 and K2+K3+K4.
 // The fixed joint rotations (K4) stay out of the struct, which would pass
 // the classic 4 KB kernel-parameter limit with them: they are a small
-// (NB, 4) device array read with uniform __ldg loads, and a bit mask
-// `rot_rows` marks the rows that are not the identity.
+// (NB, 4) device array read with __ldg loads, and a bit mask `rot_rows`
+// marks the rows that are not the identity.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -495,16 +495,22 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
 }
 
 // ===========================================================================
-// control_step_warp<PD, PLANK>: K1 <false, false>, K2 <false, true>, K3
-// <true, false> and K2+K3 <true, true>, a warp per env.
+// control_step_warp<PD, PLANK, ROT>: K1 <false, false, false>, K2 <false,
+// true, false>, K3 <true, false, false>, K2+K3 <true, true, false>, K4
+// <false, false, true> and K3+K4 <true, false, true>, a warp per env.
 //
 // Replaces pallas_step.py:733 in its joint_rot=None specializations (K1:
 // pd=False, support_hy=None; K2: support_hy=<float>; K3: pd=True; K2+K3:
-// both). It computes what control_step_kernel<PD, PLANK, false> computes,
-// with the same arguments, (k, B) layout and outputs. Stable PD (PD) adds
-// only registers: lane j holds joint j's target, every lane the env's
-// power, and the joint lanes add the PD torque and gains in the serial
-// body's order; with PD false the kernel is K1's and K2's code as it was.
+// both) and in K4 (joint_rot set) and K3+K4 (with pd=True). It computes
+// what control_step_kernel<PD, PLANK, ROT> computes, with the same
+// arguments, (k, B) layout and outputs. Stable PD (PD) adds only
+// registers: lane j holds joint j's target, every lane the env's power,
+// and the joint lanes add the PD torque and gains in the serial body's
+// order; with PD false the kernel is K1's and K2's code as it was. Rotated
+// frames (ROT) add one Hamilton product in the tree-level pass: the lane
+// of a body whose `rot_rows` bit is set forms quat[p] * jrot[i] (read with
+// __ldg) before the hinge's product, in the serial body's order; no shared
+// memory and no sync more, and with ROT false the code is as it was.
 //
 // Bound: fp32 operations (`control_step_flops`), as above. The
 // thread-per-env body is held back by occupancy (a thread per env) and by
@@ -515,10 +521,11 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
 //  - the per-env scratch lives in dynamic shared memory, laid out at launch
 //    by `warp_layout` from the model's NB, NC and the stone count (Walker3D:
 //    7.4 KB on discs, 7.8 KB on planks; Cassie 4.9 / 5.4 KB; against
-//    12.6-13.4 KB of local memory a thread), so 24 envs are resident on an
-//    SM: registers bound it in all four instantiations (80 a thread, 40-64
-//    bytes spilled; a PD-only bound of 8 blocks, 64 registers, spilled
-//    132-152 bytes and lost at 64 and 1,024 envs what it won at 4,096);
+//    12.6-13.4 KB of local memory a thread; the rotation adds none), so 24
+//    envs are resident on an SM: registers bound it in the instantiations
+//    without ROT (80 a thread, 40-64 bytes spilled; a PD-only bound of 8
+//    blocks, 64 registers, spilled 132-152 bytes and lost at 64 and 1,024
+//    envs what it won at 4,096);
 //  - each section's work is spread over the lanes: a stone per lane for the
 //    normals and plank axes; a sphere's stone tests over a group of lanes;
 //    forward kinematics, motion axes, body velocities and the RNEA's
@@ -602,10 +609,11 @@ __device__ __forceinline__ void quat_matrix(const float* q, float* R) {
   R[6] = 2 * (xz - wy);     R[7] = 2 * (yz + wx);     R[8] = 1 - 2 * (xx + yy);
 }
 
-template <bool PD, bool PLANK>
+template <bool PD, bool PLANK, bool ROT>
 __global__ void __launch_bounds__(WARP_ENVS * 32, 6)
 control_step_warp(const __grid_constant__ ModelData m, const ModelData* __restrict__ gm,
-                  const WarpLayout lay, int B, int S, float hy_margin, int nlev, int npairs,
+                  const WarpLayout lay, int B, int S, float hy_margin, unsigned int rot_rows,
+                  const float* __restrict__ jrot_in, int nlev, int npairs,
                   const int* __restrict__ tab,
                   const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ tau_in, const float* __restrict__ target_in,
@@ -730,7 +738,17 @@ control_step_warp(const __grid_constant__ ModelData m, const ModelData* __restri
         qrot(qp, an, t);
         for (int a = 0; a < 3; ++a) pi[a] = pos[3 * p + a] + t[a];
         const float qa[4] = {quat[4 * i], quat[4 * i + 1], quat[4 * i + 2], quat[4 * i + 3]};
-        qmul(qp, qa, qi);
+        if constexpr (ROT) {
+          float qf[4] = {qp[0], qp[1], qp[2], qp[3]};
+          if ((rot_rows >> i) & 1u) {  // fixed frame rotation before the hinge
+            const float jr[4] = {__ldg(jrot_in + 4 * i), __ldg(jrot_in + 4 * i + 1),
+                                 __ldg(jrot_in + 4 * i + 2), __ldg(jrot_in + 4 * i + 3)};
+            qmul(qp, jr, qf);
+          }
+          qmul(qf, qa, qi);
+        } else {
+          qmul(qp, qa, qi);
+        }
         qrot(qi, ax, ph);  // world joint axis
         const float prel[3] = {pi[0] - pos[0], pi[1] - pos[1], pi[2] - pos[2]};
         cross3(prel, ph, ph + 3);
@@ -1083,48 +1101,49 @@ static void launch(const ModelData* model, int B, int S, float hy_margin, unsign
       use_ground, q_out, qd_out, info_out);
 }
 
-// dynamic shared memory of a block of control_step_warp<PD, PLANK>,
+// dynamic shared memory of a block of control_step_warp<PD, PLANK, ROT>,
 // allowed past the 48 KB default and with the SM's L1 / shared split set
 // for it
-template <bool PD, bool PLANK>
+template <bool PD, bool PLANK, bool ROT>
 static cudaError_t warp_prepare(const WarpLayout& lay, int* smem) {
   *smem = WARP_ENVS * lay.size * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(control_step_warp<PD, PLANK>,
+  cudaError_t err = cudaFuncSetAttribute(control_step_warp<PD, PLANK, ROT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(control_step_warp<PD, PLANK>,
+    err = cudaFuncSetAttribute(control_step_warp<PD, PLANK, ROT>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return err;
 }
 
-template <bool PD, bool PLANK>
+template <bool PD, bool PLANK, bool ROT>
 static cudaError_t launch_warp(const ModelData* model, const ModelData* model_dev, int B, int S,
-                               float hy_margin, int nlev, int npairs, const int* tables,
+                               float hy_margin, unsigned int rot_rows, const float* jrot,
+                               int nlev, int npairs, const int* tables,
                                const float* q, const float* qd, const float* tau,
                                const float* target, const float* power, const float* stones,
                                const float* stone_radius, const float* use_ground, float* q_out,
                                float* qd_out, float* info_out, cudaStream_t stream) {
   const WarpLayout lay = warp_layout(model->nb, model->nc, S, PLANK);
   int smem = 0;
-  const cudaError_t err = warp_prepare<PD, PLANK>(lay, &smem);
+  const cudaError_t err = warp_prepare<PD, PLANK, ROT>(lay, &smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + WARP_ENVS - 1) / WARP_ENVS;
-  control_step_warp<PD, PLANK><<<blocks, WARP_ENVS * 32, smem, stream>>>(
-      *model, model_dev, lay, B, S, hy_margin, nlev, npairs, tables, q, qd, tau, target, power,
-      stones, stone_radius, use_ground, q_out, qd_out, info_out);
+  control_step_warp<PD, PLANK, ROT><<<blocks, WARP_ENVS * 32, smem, stream>>>(
+      *model, model_dev, lay, B, S, hy_margin, rot_rows, jrot, nlev, npairs, tables, q, qd, tau,
+      target, power, stones, stone_radius, use_ground, q_out, qd_out, info_out);
   return cudaSuccess;
 }
 
-// resident blocks of control_step_warp<PD, PLANK> on one SM (the occupancy
-// calculator)
-template <bool PD, bool PLANK>
+// resident blocks of control_step_warp<PD, PLANK, ROT> on one SM (the
+// occupancy calculator)
+template <bool PD, bool PLANK, bool ROT>
 static cudaError_t warp_blocks_per_sm(const WarpLayout& lay, int* blocks) {
   int smem = 0;
-  cudaError_t err = warp_prepare<PD, PLANK>(lay, &smem);
+  cudaError_t err = warp_prepare<PD, PLANK, ROT>(lay, &smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, control_step_warp<PD, PLANK>,
-                                                        WARP_ENVS * 32, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, control_step_warp<PD, PLANK, ROT>, WARP_ENVS * 32, smem);
   return err;
 }
 
@@ -1134,25 +1153,29 @@ extern "C" {
 int control_step_model_size(void) { return (int)sizeof(ModelData); }
 
 // Floats of one env's scratch in control_step_warp (the same with and
-// without PD), T_SIZE and WARP_ENVS, so the binding can check its mirrors
-// (`warp_layout`, `kernel_tables`)
+// without PD or ROT), T_SIZE and WARP_ENVS, so the binding can check its
+// mirrors (`warp_layout`, `kernel_tables`)
 int control_step_warp_floats(int nb, int nc, int S, int plank) {
   return warp_layout(nb, nc, S, plank != 0).size;
 }
 int control_step_tables_size(void) { return T_SIZE; }
 int control_step_warp_envs_per_block(void) { return WARP_ENVS; }
 
-// Envs of control_step_warp<pd, plank> resident on one SM for this model
-// and stone count (the occupancy calculator), or -(CUDA error)
-int control_step_warp_envs_per_sm(int nb, int nc, int S, int pd, int plank) {
+// Envs of control_step_warp<pd, plank, rot> resident on one SM for this
+// model and stone count (the occupancy calculator), or -(CUDA error);
+// K2+K4 and K2+K3+K4 have no warp instantiation
+int control_step_warp_envs_per_sm(int nb, int nc, int S, int pd, int plank, int rot) {
   const WarpLayout lay = warp_layout(nb, nc, S, plank != 0);
   int blocks = 0;
   cudaError_t err;
-  switch ((pd ? 2 : 0) | (plank ? 1 : 0)) {
-    case 0: err = warp_blocks_per_sm<false, false>(lay, &blocks); break;
-    case 1: err = warp_blocks_per_sm<false, true>(lay, &blocks); break;
-    case 2: err = warp_blocks_per_sm<true, false>(lay, &blocks); break;
-    default: err = warp_blocks_per_sm<true, true>(lay, &blocks); break;
+  switch ((rot ? 4 : 0) | (pd ? 2 : 0) | (plank ? 1 : 0)) {
+    case 0: err = warp_blocks_per_sm<false, false, false>(lay, &blocks); break;
+    case 1: err = warp_blocks_per_sm<false, true, false>(lay, &blocks); break;
+    case 2: err = warp_blocks_per_sm<true, false, false>(lay, &blocks); break;
+    case 3: err = warp_blocks_per_sm<true, true, false>(lay, &blocks); break;
+    case 4: err = warp_blocks_per_sm<false, false, true>(lay, &blocks); break;
+    case 6: err = warp_blocks_per_sm<true, false, true>(lay, &blocks); break;
+    default: err = cudaErrorInvalidValue; break;
   }
   return err == cudaSuccess ? blocks * WARP_ENVS : -(int)err;
 }
@@ -1162,10 +1185,10 @@ int control_step_warp_envs_per_sm(int nb, int nc, int S, int pd, int plank) {
   model, B, S, hy_margin, rot_rows, jrot, q, qd, tau, target, power, stones, stone_radius, \
       use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
 
-// Launch the (pd, plank, rot) variant on `stream`: K1, K2, K3 and K2+K3
-// (rot = 0) run control_step_warp with `model_dev`, a copy of *model on the
+// Launch the (pd, plank, rot) variant on `stream`: K1, K2, K3, K2+K3, K4
+// and K3+K4 run control_step_warp with `model_dev`, a copy of *model on the
 // device, and the model's `tables` (T_SIZE int32 on the device: nlev
-// levels, npairs mass-matrix entries); the K4 variants run
+// levels, npairs mass-matrix entries); K2+K4 and K2+K3+K4 run
 // control_step_kernel. target and power are read only when pd != 0,
 // hy_margin only when plank != 0, rot_rows and jrot (NB, 4) only when
 // rot != 0. Returns the CUDA error of the launch (0 = launched).
@@ -1176,48 +1199,47 @@ int control_step_launch(const ModelData* model, int B, int S, int pd, int plank,
                         const float* power, const float* stones, const float* stone_radius,
                         const float* use_ground,
                         float* q_out, float* qd_out, float* info_out, void* stream) {
-  if (!rot) {
-#define WARP_ARGS                                                                          \
-  model, model_dev, B, S, hy_margin, nlev, npairs, tables, q, qd, tau, target, power, stones, \
-      stone_radius, use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
-    cudaError_t err;
-    switch ((pd ? 2 : 0) | (plank ? 1 : 0)) {
-      case 0: err = launch_warp<false, false>(WARP_ARGS); break;
-      case 1: err = launch_warp<false, true>(WARP_ARGS); break;
-      case 2: err = launch_warp<true, false>(WARP_ARGS); break;
-      default: err = launch_warp<true, true>(WARP_ARGS); break;
-    }
-#undef WARP_ARGS
-    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-  }
-  switch ((pd ? 2 : 0) | (plank ? 1 : 0)) {
-    case 0: launch<false, false, true>(CONTROL_STEP_ARGS); break;
-    case 1: launch<false, true, true>(CONTROL_STEP_ARGS); break;
-    case 2: launch<true, false, true>(CONTROL_STEP_ARGS); break;
+#define WARP_ARGS                                                                             \
+  model, model_dev, B, S, hy_margin, rot_rows, jrot, nlev, npairs, tables, q, qd, tau, target, \
+      power, stones, stone_radius, use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
+  cudaError_t err = cudaSuccess;
+  switch ((rot ? 4 : 0) | (pd ? 2 : 0) | (plank ? 1 : 0)) {
+    case 0: err = launch_warp<false, false, false>(WARP_ARGS); break;
+    case 1: err = launch_warp<false, true, false>(WARP_ARGS); break;
+    case 2: err = launch_warp<true, false, false>(WARP_ARGS); break;
+    case 3: err = launch_warp<true, true, false>(WARP_ARGS); break;
+    case 4: err = launch_warp<false, false, true>(WARP_ARGS); break;
+    case 5: launch<false, true, true>(CONTROL_STEP_ARGS); break;
+    case 6: err = launch_warp<true, false, true>(WARP_ARGS); break;
     default: launch<true, true, true>(CONTROL_STEP_ARGS); break;
   }
-  return (int)cudaGetLastError();
+#undef WARP_ARGS
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The thread-per-env K1, K2, K3 or K2+K3 (control_step_kernel<pd, plank,
-// false>), for timing the two designs against each other; nothing on a
-// path calls it. target and power are read only when pd != 0.
-int control_step_launch_thread(const ModelData* model, int B, int S, int pd, int plank,
-                               float hy_margin, const float* q, const float* qd, const float* tau,
+// The thread-per-env body in the (pd, plank, rot) variant
+// (control_step_kernel<pd, plank, rot>), for timing the two designs of K1,
+// K2, K3, K2+K3, K4 and K3+K4 against each other; nothing on a path calls
+// it for those. target and power are read only when pd != 0, rot_rows and
+// jrot only when rot != 0.
+int control_step_launch_thread(const ModelData* model, int B, int S, int pd, int plank, int rot,
+                               float hy_margin, unsigned int rot_rows, const float* jrot,
+                               const float* q, const float* qd, const float* tau,
                                const float* target, const float* power, const float* stones,
                                const float* stone_radius, const float* use_ground, float* q_out,
                                float* qd_out, float* info_out, void* stream) {
-  const unsigned int rot_rows = 0u;
-  const float* jrot = nullptr;
-  switch ((pd ? 2 : 0) | (plank ? 1 : 0)) {
+  switch ((rot ? 4 : 0) | (pd ? 2 : 0) | (plank ? 1 : 0)) {
     case 0: launch<false, false, false>(CONTROL_STEP_ARGS); break;
     case 1: launch<false, true, false>(CONTROL_STEP_ARGS); break;
     case 2: launch<true, false, false>(CONTROL_STEP_ARGS); break;
-    default: launch<true, true, false>(CONTROL_STEP_ARGS); break;
+    case 3: launch<true, true, false>(CONTROL_STEP_ARGS); break;
+    case 4: launch<false, false, true>(CONTROL_STEP_ARGS); break;
+    case 5: launch<false, true, true>(CONTROL_STEP_ARGS); break;
+    case 6: launch<true, false, true>(CONTROL_STEP_ARGS); break;
+    default: launch<true, true, true>(CONTROL_STEP_ARGS); break;
   }
 #undef CONTROL_STEP_ARGS
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
-

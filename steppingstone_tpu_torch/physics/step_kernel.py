@@ -11,13 +11,14 @@ each of its specializations:
 - K4: rotated joint frames (a model with `joint_rot`, from a URDF);
 - their combinations K2+K3, K2+K4, K3+K4 and K2+K3+K4.
 
-K1, K2, K3 and K2+K3 run `control_step_warp<PD, PLANK>` (a warp per env,
-its scratch in shared memory laid out by `warp_layout`, the tree walked
-with the model's `kernel_tables`); the K4 variants run the thread-per-env
-template `control_step_kernel<PD, PLANK, ROT>`. The thread-per-env K1, K2,
-K3 and K2+K3 stay built for timing the two designs against each other
-(`launch(..., thread_design=True)`, counted as "K1@thread", "K2@thread",
-"K3@thread" and "K2+K3@thread"); no path takes them.
+K1, K2, K3, K2+K3, K4 and K3+K4 (`WARP_DESIGN`) run
+`control_step_warp<PD, PLANK, ROT>` (a warp per env, its scratch in shared
+memory laid out by `warp_layout`, the tree walked with the model's
+`kernel_tables`); K2+K4 and K2+K3+K4 run the thread-per-env template
+`control_step_kernel<PD, PLANK, ROT>`. The thread-per-env versions of the
+six warp-design variants stay built for timing the two designs against
+each other (`launch(..., thread_design=True)`, counted as "K1@thread" ...
+"K3+K4@thread", `THREAD_DESIGN`); no path takes them.
 
 It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
@@ -74,8 +75,11 @@ VARIANTS = {"K1": (False, False, False), "K2": (False, True, False),
             "K3+K4": (True, False, True), "K2+K3+K4": (True, True, True)}
 
 
-# the thread-per-env K1, K2, K3 and K2+K3, launched only to time the designs
-THREAD_DESIGN = {f"{v}@thread": v for v in ("K1", "K2", "K3", "K2+K3")}
+# the variants that run control_step_warp; K2+K4 and K2+K3+K4 run the
+# thread-per-env body
+WARP_DESIGN = ("K1", "K2", "K3", "K2+K3", "K4", "K3+K4")
+# the thread-per-env versions of those, launched only to time the designs
+THREAD_DESIGN = {f"{v}@thread": v for v in WARP_DESIGN}
 COUNTED = (*VARIANTS, *THREAD_DESIGN)
 
 
@@ -268,12 +272,13 @@ class ControlStepKernel:
             lib.control_step_launch_thread.restype = ctypes.c_int
             lib.control_step_launch_thread.argtypes = (
                 [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 12
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint]
+                + [ctypes.c_void_p] * 13
             )
             lib.control_step_warp_floats.restype = ctypes.c_int
             lib.control_step_warp_floats.argtypes = [ctypes.c_int] * 4
             lib.control_step_warp_envs_per_sm.restype = ctypes.c_int
-            lib.control_step_warp_envs_per_sm.argtypes = [ctypes.c_int] * 5
+            lib.control_step_warp_envs_per_sm.argtypes = [ctypes.c_int] * 6
             for fn in (lib.control_step_model_size, lib.control_step_tables_size,
                        lib.control_step_warp_envs_per_block):
                 fn.restype = ctypes.c_int
@@ -314,13 +319,14 @@ class ControlStepKernel:
             self._tables[key] = (torch.as_tensor(tab, device=device), nlev, npairs)
         return (self._model_copies[copy_key], *self._tables[key])
 
-    def warp_envs_per_sm(self, model, n_stones: int, pd: bool, plank: bool) -> int:
-        """Envs of control_step_warp<pd, plank> resident on one SM of the
-        current card for this model and stone count (the CUDA occupancy
+    def warp_envs_per_sm(self, model, n_stones: int, pd: bool, plank: bool,
+                         rot: bool = False) -> int:
+        """Envs of control_step_warp<pd, plank, rot> resident on one SM of
+        the current card for this model and stone count (the CUDA occupancy
         calculator)."""
         self.build()
         n = self._lib.control_step_warp_envs_per_sm(model.nbodies, model.ncontacts, n_stones,
-                                                     int(pd), int(plank))
+                                                     int(pd), int(plank), int(rot))
         if n < 0:
             raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
         return n
@@ -333,10 +339,10 @@ class ControlStepKernel:
         (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
         float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
         for planks `support_hy` (a float); a model with `joint_rot` runs a
-        K4 variant. `thread_design` launches the thread-per-env K1, K2, K3 or
-        K2+K3 in place of control_step_warp, for timing the two. Returns new
-        (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers check inputs
-        (`control_step` does)."""
+        K4 variant. `thread_design` launches the thread-per-env body of a
+        `WARP_DESIGN` variant in place of control_step_warp, for timing the
+        two. Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers
+        check inputs (`control_step` does)."""
         self.build()
         model_key = (model, cparams, substeps)
         md = self._models.get(model_key)
@@ -354,23 +360,23 @@ class ControlStepKernel:
         # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
         # plain version compares against the same sum
         hy_margin = float(support_hy) + cparams.margin if plank else 0.0
+        jrot, rot_rows = None, 0
+        if rot:
+            key = (model, q_t.device)
+            if key not in self._rotations:
+                self._rotations[key] = _joint_rotations(model, q_t.device)
+            jrot, rot_rows = self._rotations[key]
         with torch.cuda.device(q_t.device):
             stream = torch.cuda.current_stream(q_t.device).cuda_stream
             if thread_design:
                 name += "@thread"
                 err = self._lib.control_step_launch_thread(
-                    ctypes.byref(md), B, S, int(pd), int(plank), hy_margin,
-                    *(ptr(t) for t in (q_t, qd_t, tau_t, target_t, power, stones_t, stone_radius,
-                                       use_ground, *outs)), stream)
+                    ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
+                    *(ptr(t) for t in (jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
+                                       stone_radius, use_ground, *outs)), stream)
             else:
-                jrot, rot_rows = None, 0
-                if rot:
-                    key = (model, q_t.device)
-                    if key not in self._rotations:
-                        self._rotations[key] = _joint_rotations(model, q_t.device)
-                    jrot, rot_rows = self._rotations[key]
                 md_dev, tables, nlev, npairs = None, None, 0, 0
-                if not rot:
+                if name in WARP_DESIGN:
                     md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S,
                                                                        plank, q_t.device)
                 ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,

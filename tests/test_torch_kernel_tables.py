@@ -1,14 +1,16 @@
-"""The host side of `control_step_warp<PD, PLANK>` (kernels K1, K2, K3 and
-K2+K3, a warp per env), checked on the CPU: the model's tables (bodies by
-tree level, each body's children, the mass matrix's ancestor pattern), the
-per-env layout of the scratch in shared memory against the kernel's
-source, the launch entries' dispatch of (pd, plank, rot) to the template
-instantiations in the source, a walk of the tables in PyTorch against the
+"""The host side of `control_step_warp<PD, PLANK, ROT>` (kernels K1, K2,
+K3, K2+K3, K4 and K3+K4, a warp per env), checked on the CPU: the model's
+tables (bodies by tree level, each body's children, the mass matrix's
+ancestor pattern), the per-env layout of the scratch in shared memory
+against the kernel's source, the launch entries' dispatch of (pd, plank,
+rot) to the template instantiations in the source, a walk of the tables in
+PyTorch (with fixed joint rotations on the rotated robots) against the
 port's kinematics and mass matrix (1e-6), and the lanes' search for each
 sphere's first maximum against the serial loop (exact). The kernel itself
 runs only on the card (tests/test_torch_structure.py, `chip_smoke.py`) and
 under a warp emulation (tests/test_torch_warp_emulation.py)."""
 
+import dataclasses
 import math
 import re
 
@@ -20,6 +22,7 @@ from steppingstone_tpu_torch.core import quaternion as qt
 from steppingstone_tpu_torch.core import spatial as sp
 from steppingstone_tpu_torch.physics import dynamics, engine, kinematics, step_kernel
 from steppingstone_tpu_torch.physics.dynamics import _ancestor_mask
+from steppingstone_tpu_torch.physics.model import with_rotated_frames
 from steppingstone_tpu_torch.physics.robots.cassie import cassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
 
@@ -142,49 +145,70 @@ def test_table_and_block_constants_match_the_kernel():
 
 def _dispatch(body):
     """switch case -> (the instantiated function, its bool template
-    arguments) in a body that switches on (pd ? 2 : 0) | (plank ? 1 : 0)."""
-    assert "switch ((pd ? 2 : 0) | (plank ? 1 : 0))" in body
-    cases = re.findall(r"(case \d+|default): (?:err = )?(\w+)<(\w+), (\w+)(?:, (\w+))?>", body)
-    return {3 if key == "default" else int(key.split()[1]):
-            (fn, tuple(f == "true" for f in flags if f)) for key, fn, *flags in cases}
+    arguments) in a body that switches on (rot ? 4 : 0) | (pd ? 2 : 0) |
+    (plank ? 1 : 0); a case that instantiates nothing is left out."""
+    assert "switch ((rot ? 4 : 0) | (pd ? 2 : 0) | (plank ? 1 : 0))" in body
+    cases = re.findall(r"(case \d+|default): (?:err = )?(\w+)<(\w+), (\w+), (\w+)>", body)
+    return {7 if key == "default" else int(key.split()[1]):
+            (fn, tuple(f == "true" for f in flags)) for key, fn, *flags in cases}
 
 
-# each launch entry's body in csrc/control_step.cu (from, to) and what it
-# instantiates for (pd, plank): the warp design without ROT, the
-# thread-per-env body with ROT (the K4 variants) and for the paired timing
+# the variants that run control_step_warp (K1, K2, K3, K2+K3, K4, K3+K4);
+# K2+K4 and K2+K3+K4 (rot and plank) run the thread-per-env body
+ON_WARP = {(pd, plank, rot) for pd in (False, True) for plank in (False, True)
+           for rot in (False, True) if not (rot and plank)}
+
+LAUNCH = ("int control_step_launch(", "#undef WARP_ARGS")
+# each launch entry's body in csrc/control_step.cu (from, to), the variants
+# (pd, plank, rot) checked there, and what it instantiates for each, or
+# None where it instantiates nothing: the launch without ROT and with it
+# (K4 and K3+K4 on the warp design, K2+K4 and K2+K3+K4 thread per env), the
+# thread-per-env timing (every variant's body) and the occupancy query (the
+# warp instantiations only)
 DISPATCH = {
-    "warp launch": (("int control_step_launch(", "#undef WARP_ARGS"),
-                    lambda pd, plank: ("launch_warp", (pd, plank))),
-    "K4 launch": (("#undef WARP_ARGS", "int control_step_launch_thread("),
-                  lambda pd, plank: ("launch", (pd, plank, True))),
+    "warp launch": (LAUNCH, lambda f: not f[2], lambda f: ("launch_warp", f)),
+    "K4 launch": (LAUNCH, lambda f: f[2],
+                  lambda f: ("launch_warp", f) if f in ON_WARP else ("launch", f)),
     "thread-per-env timing": (("int control_step_launch_thread(", '}  // extern "C"'),
-                              lambda pd, plank: ("launch", (pd, plank, False))),
+                              lambda f: True, lambda f: ("launch", f)),
     "occupancy": (("int control_step_warp_envs_per_sm(", "int control_step_launch("),
-                  lambda pd, plank: ("warp_blocks_per_sm", (pd, plank))),
+                  lambda f: True, lambda f: ("warp_blocks_per_sm", f) if f in ON_WARP else None),
 }
 
 
 @pytest.mark.parametrize("entry", list(DISPATCH))
 def test_launch_entries_dispatch_each_variant(entry):
-    """Each (pd, plank) reaches its own instantiation: K1, K2, K3 and K2+K3
-    control_step_warp<PD, PLANK>, the K4 variants and the thread-per-env
-    timing control_step_kernel<PD, PLANK, ROT>."""
+    """Each (pd, plank, rot) reaches its own instantiation: K1, K2, K3,
+    K2+K3, K4 and K3+K4 control_step_warp<PD, PLANK, ROT>, K2+K4 and
+    K2+K3+K4 and the thread-per-env timing control_step_kernel<PD, PLANK,
+    ROT>; the warp template is instantiated for no plank+rot variant."""
     src = SK.SOURCE.read_text()
-    assert "template <bool PD, bool PLANK>\n__global__ void __launch_bounds__" in src
-    (start, end), expect = DISPATCH[entry]
+    assert ("template <bool PD, bool PLANK, bool ROT>\n"
+            "__global__ void __launch_bounds__(WARP_ENVS") in src
+    assert not re.search(r"(launch_warp|warp_blocks_per_sm|warp_prepare|control_step_warp)"
+                         r"<(true|false), true, true>", src)
+    (start, end), checked, expect = DISPATCH[entry]
     body = src[src.index(start):]
     body = body[:body.index(end, 1)]
+    flags = {4 * rot + 2 * pd + plank: (pd, plank, rot)
+             for pd in (False, True) for plank in (False, True) for rot in (False, True)}
     cases = _dispatch(body)
-    assert cases == {2 * pd + plank: expect(pd, plank)
-                     for pd in (False, True) for plank in (False, True)}
+    assert {k: c for k, c in cases.items() if checked(flags[k])} == {
+        k: expect(f) for k, f in flags.items() if checked(f) and expect(f)}
+    assert {SK.VARIANTS[v] for v in SK.WARP_DESIGN} == ON_WARP
 
 
-@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("name", [*MODELS, "walker3d_rotated", "cassie_rotated"])
 def test_tables_walk_matches_kinematics_and_mass_matrix(name):
     """Forward kinematics one tree level at a time and the mass matrix from
     the pair list, as control_step_warp computes them, in PyTorch at B = 4,
-    against the port's kinematics and dynamics (1e-6)."""
-    model = MODELS[name]()
+    against the port's kinematics and dynamics (1e-6); on the rotated
+    robots (fixed joint rotations drawn from a seed) each flagged body's
+    hinge frame is (quat[p] * jrot[i]) * axis_angle, as K4's lanes form it."""
+    model = MODELS[name.removesuffix("_rotated")]()
+    if name.endswith("_rotated"):
+        model = with_rotated_frames(model, seed=2)
+    jrot, rot_rows = SK._joint_rotations(model, "cpu") if model.joint_rot is not None else (None, 0)
     t = _sections(model)
     level, order, child, children = t["level"], t["order"], t["child"], t["children"]
     rng = np.random.default_rng(3)
@@ -203,10 +227,15 @@ def test_tables_walk_matches_kinematics_and_mass_matrix(name):
             p = parent[i]
             assert pos[p] is not None and pos[i] is None  # parent done, each body once
             pos[i] = pos[p] + qt.rotate(quat[p], anchor[i])
-            quat[i] = qt.mul(quat[p], qt.from_axis_angle(axis[i], q[:, 6 + i]))
+            frame = qt.mul(quat[p], jrot[i]) if (rot_rows >> int(i)) & 1 else quat[p]
+            quat[i] = qt.mul(frame, qt.from_axis_angle(axis[i], q[:, 6 + i]))
     kin = kinematics.forward_kinematics(model, q)
     torch.testing.assert_close(torch.stack(pos, 1), kin.pos, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(torch.stack(quat, 1), kin.quat, rtol=1e-6, atol=1e-6)
+    if jrot is not None:  # three of four rows are rotated, and it matters
+        assert bin(rot_rows).count("1") == nb - len(range(0, nb, 4))
+        plain = kinematics.forward_kinematics(dataclasses.replace(model, joint_rot=None), q)
+        assert (plain.pos - kin.pos).abs().max() > 1e-2
 
     # composite inertias leaves to root, each parent pulling its children
     # in the tables' order; then F_k = Ic phi_k and M[k, l] = F_k . phi_l

@@ -5,7 +5,8 @@ and the sources are where the builds expect them. The card-only tests
 hold the eight control-step variants (K1..K4 and their combinations)
 against their plain version and skip on a host without a GPU (run them on
 the card with `python3 -m pytest --noconftest tests/test_torch_structure.py`);
-K1, K2, K3 and K2+K3 are control_step_warp<PD, PLANK>, a warp per env."""
+K1, K2, K3, K2+K3, K4 and K3+K4 are control_step_warp<PD, PLANK, ROT>, a
+warp per env."""
 
 import ast
 import dataclasses
@@ -283,12 +284,12 @@ def card():
 
 @pytest.mark.card
 @pytest.mark.parametrize("batch", [4096, 64])
-@pytest.mark.parametrize("variant", ["K1", "K2", "K3", "K2+K3"])
+@pytest.mark.parametrize("variant", ["K1", "K2", "K3", "K2+K3", "K4", "K3+K4"])
 def test_warp_design_matches_plain_on_the_card(card, variant, batch):
-    """K1, K2, K3 and K2+K3 run control_step_warp<PD, PLANK> (a warp per
-    env): against the plain version at the main path's 4096 envs and at 64
-    (one warp on an SM), counted under the variant and never as the
-    thread-per-env design."""
+    """K1, K2, K3, K2+K3, K4 and K3+K4 run control_step_warp<PD, PLANK,
+    ROT> (a warp per env): against the plain version at the main path's
+    4096 envs and at 64 (one warp on an SM), counted under the variant and
+    never as the thread-per-env design."""
     thread = f"{variant}@thread"
     before = step_kernel.CONTROL_STEP.launches[thread]
     _check_variant_on_the_card(variant, batch)

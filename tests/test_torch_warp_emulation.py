@@ -1,5 +1,6 @@
-"""control_step_warp<PD, PLANK> (kernels K1, K2, K3 and K2+K3) run on the
-CPU, where there is no card: the kernel's part of csrc/control_step.cu is
+"""control_step_warp<PD, PLANK, ROT> (kernels K1, K2, K3, K2+K3, K4 and
+K3+K4) run on the CPU, where there is no card: the kernel's part of
+csrc/control_step.cu is
 compiled with the host C++ compiler against tests/warp_emulation.h, which
 runs each lane as a thread and meets a warp's lanes at a barrier for
 __syncwarp and the shuffles, block after block. Its outputs are held to
@@ -9,14 +10,19 @@ the diagnostics exactly: on Walker3D and Cassie torques over discs and
 planks, on Cassie stable PD over discs and planks, on a 2-body pendulum
 over 6 stones (2 spheres, so 16 lanes a sphere) and on a PD pendulum whose
 one joint has only kp and the other only kd (the gate kp != 0 || kd != 0),
-at ragged batches (the last block has idle warps). The emulated K3 and
-K2+K3 are also held to the JAX Pallas kernel's `pd=True` variant in
-interpret mode (the bars of tests/test_torch_physics.py) on a slice of its
-1024-env tile. This checks the kernel's lane mapping, indexing, tables,
-synchronisation and PD terms; its speed and the CUDA compiler's view of it
-only the card shows (tests/test_torch_structure.py, chip_smoke.py)."""
+on Walker3D torques (K4) and Cassie stable PD (K3+K4) with fixed joint
+rotations drawn from a seed and on the rotated pendulum of
+tests/test_torch_urdf.py (K4), at ragged batches (the last block has idle
+warps). The emulated K3 and K2+K3 are also held to the JAX Pallas
+kernel's `pd=True` variant, and the emulated K4 and K3+K4 to its
+`joint_rot` variant, in interpret mode (the bars of
+tests/test_torch_physics.py) on a slice of its 1024-env tile. This checks
+the kernel's lane mapping, indexing, tables, synchronisation, PD terms
+and rotated frames; its speed and the CUDA compiler's view of it only the
+card shows (tests/test_torch_structure.py, chip_smoke.py)."""
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_physics import _check_step, _pd_draws, _pd_pendulum
+from test_torch_physics import _pendulum as _pallas_pendulum  # the pendulum of either package
 from test_torch_physics import _inputs as _jax_inputs  # numpy inputs, JAX's default state
 
 from steppingstone_tpu.physics import contact as jct
@@ -34,9 +41,9 @@ from steppingstone_tpu.physics import dynamics as jdyn
 from steppingstone_tpu.physics import engine as jeng
 from steppingstone_tpu.physics import pallas_step
 from steppingstone_tpu.physics.model import build_model as jbuild
-from steppingstone_tpu_torch.physics import engine, step_kernel
+from steppingstone_tpu_torch.physics import engine, kinematics, step_kernel
 from steppingstone_tpu_torch.physics.contact import ContactParams
-from steppingstone_tpu_torch.physics.model import build_model
+from steppingstone_tpu_torch.physics.model import build_model, with_rotated_frames
 from steppingstone_tpu_torch.physics.robots.cassie import cassie
 from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
 
@@ -51,27 +58,35 @@ HARNESS = r"""
 float smem[1 << 18];  // the kernel's extern __shared__ array
 #include "kernel_part.inc"
 
-typedef void (*LaneBody)(const ModelData*, const WarpLayout&, int, int, float, int, int, const int*,
-                     const float*, const float*, const float*, const float*, const float*,
-                     const float*, const float*, const float*, float*, float*, float*);
+typedef void (*LaneBody)(const ModelData*, const WarpLayout&, int, int, float, unsigned,
+                         const float*, int, int, const int*, const float*, const float*,
+                         const float*, const float*, const float*, const float*, const float*,
+                         const float*, float*, float*, float*);
 
-template <bool PD, bool PLANK>
-void lane_body(const ModelData* m, const WarpLayout& lay, int B, int S, float hy_margin, int nlev,
-          int npairs, const int* tab, const float* q, const float* qd, const float* tau,
-          const float* target, const float* power, const float* st, const float* sr,
-          const float* ug, float* q_out, float* qd_out, float* info_out) {
-  control_step_warp<PD, PLANK>(*m, m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau, target,
-                               power, st, sr, ug, q_out, qd_out, info_out);
+template <bool PD, bool PLANK, bool ROT>
+void lane_body(const ModelData* m, const WarpLayout& lay, int B, int S, float hy_margin,
+               unsigned rot_rows, const float* jrot, int nlev, int npairs, const int* tab,
+               const float* q, const float* qd, const float* tau, const float* target,
+               const float* power, const float* st, const float* sr, const float* ug,
+               float* q_out, float* qd_out, float* info_out) {
+  control_step_warp<PD, PLANK, ROT>(*m, m, lay, B, S, hy_margin, rot_rows, jrot, nlev, npairs,
+                                    tab, q, qd, tau, target, power, st, sr, ug, q_out, qd_out,
+                                    info_out);
 }
 
-extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank, float hy_margin,
-                            int nlev, int npairs, const int* tab, const float* q,
-                            const float* qd, const float* tau, const float* target,
-                            const float* power, const float* st, const float* sr,
-                            const float* ug, float* q_out, float* qd_out, float* info_out) {
-  const LaneBody bodies[4] = {lane_body<false, false>, lane_body<false, true>,
-                              lane_body<true, false>, lane_body<true, true>};
-  const LaneBody run = bodies[2 * (pd != 0) + (plank != 0)];
+// the instantiations that control_step_launch dispatches: K1, K2, K3,
+// K2+K3, K4 and K3+K4 (K2+K4 and K2+K3+K4 run the thread-per-env body)
+extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank, int rot,
+                            float hy_margin, unsigned rot_rows, const float* jrot, int nlev,
+                            int npairs, const int* tab, const float* q, const float* qd,
+                            const float* tau, const float* target, const float* power,
+                            const float* st, const float* sr, const float* ug, float* q_out,
+                            float* qd_out, float* info_out) {
+  if (rot && plank) return -2;
+  const LaneBody bodies[6] = {lane_body<false, false, false>, lane_body<false, true, false>,
+                              lane_body<true, false, false>, lane_body<true, true, false>,
+                              lane_body<false, false, true>, lane_body<true, false, true>};
+  const LaneBody run = rot ? bodies[4 + (pd != 0)] : bodies[2 * (pd != 0) + (plank != 0)];
   const WarpLayout lay = warp_layout(m->nb, m->nc, S, plank != 0);
   if ((long)WARP_ENVS * lay.size > (long)(sizeof(smem) / sizeof(float))) return -1;
   for (int b = 0; b < (B + WARP_ENVS - 1) / WARP_ENVS; ++b) {
@@ -85,8 +100,8 @@ extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank,
         blockIdx.x = b;
         blockDim.x = WARP_ENVS * 32;
         this_warp = warps[t >> 5].get();
-        run(m, lay, B, S, hy_margin, nlev, npairs, tab, q, qd, tau, target, power, st, sr, ug,
-            q_out, qd_out, info_out);
+        run(m, lay, B, S, hy_margin, rot_rows, jrot, nlev, npairs, tab, q, qd, tau, target,
+            power, st, sr, ug, q_out, qd_out, info_out);
       });
     for (auto& lane : lanes) lane.join();
   }
@@ -110,8 +125,9 @@ def emulated(tmp_path_factory):
                     "-o", str(lib), str(tmp / "harness.cpp")], check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).emulate_warp
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12)
+    fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 12)
     return fn
 
 
@@ -119,8 +135,9 @@ def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
     """One control step of the emulated control_step_warp on (B, k) inputs
     as control_step takes them -> (q, qd, engine.StepInfo)."""
     cp, (batch, n_stones) = ContactParams(), args[3].shape[:2]
-    pd, plank = target is not None, support_hy is not None
+    pd, plank, rot = target is not None, support_hy is not None, model.joint_rot is not None
     md = step_kernel._model_data(model, cp, engine.SUBSTEPS)
+    jrot, rot_rows = step_kernel._joint_rotations(model, "cpu") if rot else (None, 0)
     tab, nlev, npairs = step_kernel.kernel_tables(model)
     soa = step_kernel.to_kernel_layout(*args)
     pd_ins = (target.t().contiguous(), power) if pd else (None, None)
@@ -128,8 +145,8 @@ def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
     outs = [torch.empty((n, batch)) for n in (model.nq, model.ndof, model.njoints + 7)]
     hy_margin = float(support_hy) + cp.margin if plank else 0.0
     ptr = lambda t: None if t is None else t.data_ptr()
-    size = emulated(ctypes.byref(md), batch, n_stones, int(pd), int(plank), hy_margin, nlev,
-                    npairs, *(ptr(t) for t in (*ins, *outs)))
+    size = emulated(ctypes.byref(md), batch, n_stones, int(pd), int(plank), int(rot), hy_margin,
+                    rot_rows, ptr(jrot), nlev, npairs, *(ptr(t) for t in (*ins, *outs)))
     assert size == step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
     q, qd, info = outs[0].t(), outs[1].t(), outs[2]
     nj = model.njoints
@@ -165,11 +182,29 @@ def _gate_pendulum():
     return build_model("pd_gate_pendulum", bodies, contacts)
 
 
+# tests/test_torch_urdf.py's rotated pendulum: the arm's joint frame turned
+# 0.4 rad about x (tests/test_pallas_step.py's rotated_small_model)
+PENDULUM_ROT = np.array([[1, 0, 0, 0], [np.cos(0.2), np.sin(0.2), 0, 0]], np.float32)
+
+
+def _rot_pendulum():
+    return dataclasses.replace(_pendulum(), joint_rot=PENDULUM_ROT)
+
+
+def _rot_walker3d():
+    return with_rotated_frames(walker3d(), seed=3)
+
+
+def _rot_cassie():
+    return with_rotated_frames(cassie(), seed=3)
+
+
 def _inputs(model, batch, n_stones, plank, seed):
     """Perturbed standing states over a field of tilted stones, lowered so
-    that feet touch stones and the ground; the first env and about a
-    quarter of the others with the first joint past its upper limit; planks
-    shift half the envs sideways. Returns (args, PD target, PD power), the
+    that feet touch stones and the ground (rotated frames: at the
+    unrotated robot's foot height); the first env and about a quarter of
+    the others with the first joint past its upper limit; planks shift
+    half the envs sideways. Returns (args, PD target, PD power), the
     target from random actions (some beyond [-1, 1]) and the power in
     [0.5, 1]."""
     g = torch.Generator().manual_seed(seed)
@@ -188,6 +223,13 @@ def _inputs(model, batch, n_stones, plank, seed):
     if plank:
         q[:, 1] += (torch.rand(batch, generator=g) < 0.5) * (2.4 * torch.rand(batch, generator=g)
                                                              - 1.2)
+    if model.joint_rot is not None:
+        # rotated frames move the feet: lower each env until its lowest
+        # sphere is where the unrotated robot's would be, so that feet
+        # reach the stones
+        lowest = lambda m: kinematics.contact_points(
+            m, kinematics.forward_kinematics(m, q))[..., 2].min(dim=1).values
+        q[:, 2] -= lowest(model) - lowest(dataclasses.replace(model, joint_rot=None))
     tau = 20 * torch.randn(batch, model.njoints, generator=g)
     args = [q, qd, tau, stones, torch.full((batch,), 0.25),
             torch.rand(batch, generator=g) < 0.5]
@@ -207,6 +249,9 @@ CASES = {  # model, planks, stone count, batch, stable PD
     "cassie_pd_plank": (cassie, True, 20, 6, True),
     "pd_gate_pendulum_disc": (_gate_pendulum, False, 6, 5, True),
     "pd_gate_pendulum_plank": (_gate_pendulum, True, 6, 7, True),
+    "walker3d_rot_disc": (_rot_walker3d, False, 20, 6, False),
+    "cassie_rot_pd_disc": (_rot_cassie, False, 20, 7, True),
+    "rot_pendulum_disc": (_rot_pendulum, False, 6, 5, False),
 }
 
 
@@ -269,3 +314,42 @@ def test_emulated_pd_kernel_matches_pallas_interpret(emulated, support_hy):
     _check_step(out, ref)
     info = out[2]
     assert (info.contact_force_sum > 0).any() and info.joint_at_limit.any()
+
+
+@pytest.mark.parametrize("pd", [False, True])
+def test_emulated_rotated_kernel_matches_pallas_interpret(emulated, pd):
+    """The emulated K4 (torques) and K3+K4 (stable PD) against the TPU
+    kernel's `joint_rot` variant itself (with `pd=True` for K3+K4), run in
+    interpret mode at one 1024-env tile on the rotated pendulum of
+    tests/test_torch_urdf.py and on its PD twin (the same rotation on the
+    PD pendulum); the first 30 envs of the tile are emulated (a ragged last
+    block) and held to the Pallas test's bars."""
+    torch.set_num_threads(1)
+    slice_ = 30
+    make = _pd_pendulum if pd else _pallas_pendulum
+    mj, mt = (dataclasses.replace(make(b), joint_rot=PENDULUM_ROT) for b in (jbuild, build_model))
+    n = pallas_step.TILE
+    rng = np.random.default_rng(14)
+    q, qd, tau, stones, sr, ug = _jax_inputs(rng, mj, b=n, n_stones=6, drop=0.47, stone_drop=0.0)
+    q[::3, 7] = 2.05  # a third of the arms start past the joint limit
+    ins, pd_kw = (q, qd, tau, stones, sr, ug), {}
+    if pd:
+        action, power = _pd_draws(rng, mj, n)
+        target = np.array(jax.vmap(lambda a: jeng.pd_target_from_action(mj, a))(action))
+        tau = np.zeros((n, mj.njoints), np.float32)
+        ins = (q, qd, tau, target, power, stones, sr, ug)
+        pd_kw = dict(target=torch.as_tensor(target[:slice_]),
+                     power=torch.as_tensor(power[:slice_]))
+    fn = pallas_step.build_batched_step(
+        mj, jct.ContactParams(), 4, 6, jeng.SIM_DT, jeng.LIMIT_K, jeng.LIMIT_C,
+        jeng.MAX_QD, jdyn.GRAVITY, interpret=True, pd=pd)
+    qn, qdn, d = fn(*(jnp.asarray(x) for x in ins))
+    ref = jax.tree.map(lambda x: np.asarray(x)[:slice_], (qn, qdn, jeng.StepInfo(**d)))
+    args = [torch.as_tensor(x[:slice_]) for x in (q, qd, tau, stones, sr, ug)]
+    out = _emulate(emulated, mt, args, **pd_kw)
+    _check_step(out, ref)
+    info = out[2]
+    assert (info.contact_force_sum > 0).any() and info.joint_at_limit.any()
+    # the rotation matters: the unrotated kernel puts the arm elsewhere
+    plain = _emulate(emulated, dataclasses.replace(mt, joint_rot=None), args, **pd_kw)
+    assert (plain[1] - out[1]).abs().max() > 1e-2
