@@ -9,14 +9,12 @@ order; any failure exits non-zero and no phase's failure is caught:
 
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
-   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4: K1,
-   K2, K3, K2+K3, K4 and K3+K4 as control_step_warp<PD, PLANK, ROT>, a
-   warp per env, K2+K4 and K2+K3+K4 as the thread-per-env template, which
-   also keeps the thread-per-env versions of the other six for timing)
-   and ptxas's registers, stack frame and spills for each;
-   control_step_warp's shared memory per block and resident envs per SM
-   for Walker3D and Cassie on discs and on planks, and for both with
-   rotated frames on discs
+   the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4, each
+   as control_step_warp<PD, PLANK, ROT>, a warp per env, and as the first
+   design, the thread-per-env template, kept for timing) and ptxas's
+   registers, stack frame and spills for each; control_step_warp's shared
+   memory per block and resident envs per SM for Walker3D and Cassie on
+   discs and on planks, unrotated and with rotated frames
 3. each variant against its plain PyTorch version (engine._step_scan) on
    the card at B=4096 and a ragged B=1000 (K2 and K2+K3 also at 1024 and
    64, the round-5 runs' fleet and test fleet), on states from a short rollout
@@ -26,10 +24,10 @@ order; any failure exits non-zero and no phase's failure is caught:
    over LargePlank planks, K3 on Cassie stable PD over discs, K2+K3 on
    Cassie stable PD over planks, and the K4 variants on the same four
    with fixed joint rotations drawn from a seed (the repo holds no
-   full-width URDF robot); then each variant's time per launch (K2's and
-   K2+K3's also at 1024 and 64); K1, K2, K3, K2+K3, K4 and K3+K4 timed in
-   turns with their thread-per-env design on the same inputs (warp,
-   thread, thread, warp)
+   full-width URDF robot); K2 also on Mike's states at 1024 and 64 (its
+   round-5 run's fleet and test fleet); then each variant's time per
+   launch (K2's and K2+K3's also at 1024 and 64), timed in turns with its
+   thread-per-env design on the same inputs (warp, thread, thread, warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
    the plain version, and no launch of the thread-per-env design of a
@@ -59,17 +57,23 @@ order; any failure exits non-zero and no phase's failure is caught:
    - the training loop: Trainer.train from the CLI's parser on the round-5
      Walker3D run (scripts/round5_runs.sh COMMON + HARDEN + runs/r5_w3d:
      1024 envs x 400 steps, minibatches of 1024, 64 test envs every 10
-     updates, LargePlank, fixed curriculum), cut to 2 updates, then
-     resumed from checkpoints/latest for a third: K2 launches equal the
+     updates, LargePlank, fixed curriculum), cut to 1 update, then
+     resumed from checkpoints/latest for a second: K2 launches equal the
      control steps taken (test fleet included), progress.csv has the
      reference header, the artifacts exist, losses are finite
+   - Mike: Trainer.train from the CLI's parser on the round-5 Mike run
+     (scripts/round5_runs.sh COMMON + HARDEN + runs/r5_mike_scratch:
+     MikeStepperEnv-v0, LargePlank, fixed curriculum), cut to one update:
+     exactly 400 + 1000 K2 launches (the update and its test fleet), the
+     reference progress.csv header, finite losses, the update's rollout /
+     update / test fleet split
    - resume is total on the card: 256 envs x 16 steps, 2 + 2 updates
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
      second unbroken run
-5. one JSON line `{"kernels": [...]}` (each variant with its `design`;
-   K1, K2, K3, K2+K3, K4 and K3+K4 with `earlier_ms`, the thread-per-env
-   design's time in this run, and `occupancy`), the card line, and last
+5. one JSON line `{"kernels": [...]}` (each variant with its `design`,
+   `earlier_ms`, the thread-per-env design's time in this run, and
+   `occupancy`), the script's wall time, the card line, and last
    `{"ok": true, "device": {...}}`
 """
 
@@ -125,17 +129,23 @@ ROT_SEED = 5
 URDF_STEPS = 60
 ROT_WALKER_STEPS = 100
 ROT_PLANK_STEPS = 25
-# the round-5 Walker3D run, runs/r5_w3d (scripts/round5_runs.sh: COMMON,
-# HARDEN and its own line), cut in depth to UPDATES_FIRST updates then a
-# resume to UPDATES_RESUMED
-R5_W3D = [f"num_processes={R5_ENVS}", "episode_steps=409600", "mini_batch_size=1024",
-          f"num_tests={R5_TEST_ENVS}",
-          "test_interval=10", "mesh_devices=1", "use_mirror=True", "episode_log=True", "seed=8",
-          "test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
-          "anneal_updates=150", "kl_cutoff=0.12",
-          "env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank", "use_curriculum=True",
-          "checkpoint_interval=1"]
-UPDATES_FIRST, UPDATES_RESUMED = 2, 3
+# scripts/round5_runs.sh: COMMON (:19-21) and HARDEN (:31-32)
+R5_COMMON = [f"num_processes={R5_ENVS}", "episode_steps=409600", "mini_batch_size=1024",
+             f"num_tests={R5_TEST_ENVS}",
+             "test_interval=10", "mesh_devices=1", "use_mirror=True", "episode_log=True",
+             "seed=8", "test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
+             "anneal_updates=150", "kl_cutoff=0.12"]
+# the round-5 Walker3D run, runs/r5_w3d (its own line :57-58), cut in depth
+# to UPDATES_FIRST updates then a resume to UPDATES_RESUMED
+R5_W3D = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
+                      "use_curriculum=True", "checkpoint_interval=1"]
+UPDATES_FIRST, UPDATES_RESUMED = 1, 2
+# the round-5 Mike run, runs/r5_mike_scratch (its own line :92-95), cut in
+# depth to one update: 400 control steps and the test fleet's episode
+# (1000 steps), each one K2 launch
+R5_MIKE = R5_COMMON + ["env_name=MikeStepperEnv-v0", "plank_class=LargePlank",
+                       "use_curriculum=True"]
+MIKE_LAUNCHES = 400 + 1000
 PROGRESS_HEADER = ["iter", "total_num_steps", "fps", "entropy", "value_loss", "action_loss",
                    "mean_rew", "median_rew", "min_rew", "max_rew", "test_mean_rew",
                    "test_median_rew", "test_min_rew", "test_max_rew"]
@@ -229,17 +239,14 @@ def mangled_names() -> dict:
     mangled name -> its variant: control_step_warp<PD, PLANK, ROT> (and
     control_step_warp<PD, PLANK> of sources before ROT, for
     scripts/compare_sources.py's baselines) and control_step_kernel<PD,
-    PLANK, ROT> (the thread-per-env design, "K1@thread" ..., of a variant
-    that runs the warp design)."""
-    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS, WARP_DESIGN
+    PLANK, ROT> (the thread-per-env design, "K1@thread" ...)."""
+    from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
 
     mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
     names = {}
     for v, (pd, plank, rot) in VARIANTS.items():
-        on_warp = v in WARP_DESIGN
-        names[mangle("control_step_kernel", (pd, plank, rot))] = f"{v}@thread" if on_warp else v
-        if on_warp:
-            names[mangle("control_step_warp", (pd, plank, rot))] = v
+        names[mangle("control_step_kernel", (pd, plank, rot))] = f"{v}@thread"
+        names[mangle("control_step_warp", (pd, plank, rot))] = v
         if not rot:
             names[mangle("control_step_warp", (pd, plank))] = f"{v} (before ROT)"
     return names
@@ -513,7 +520,7 @@ def check_variant(env, variant: str, batch: int):
                            model.joint_rot is not None) != variant:
         raise AssertionError(f"{variant} inputs select another variant")
     extra = {"plank_only_fraction": plank_only_fraction(env, args, kw)} if "support_hy" in kw else {}
-    got = compare_step(model, variant, args, kw, variant=variant, **extra)
+    got = compare_step(model, variant, args, kw, variant=variant, robot=model.name, **extra)
     if not (0 < got["contact_fraction"] < 1 and got["on_stone_fraction"] > 0
             and got["at_limit_fraction"] > 0 and got.get("plank_only_fraction", 1) > 0):
         raise AssertionError(f"inputs did not engage contacts, limits and planks: {got}")
@@ -531,16 +538,11 @@ def time_variant(env, variant: str, args, kw) -> dict:
         launch_kw.update(target_t=kw["target"].t().contiguous(), power=kw["power"])
     cp = env.cfg.contact
     launch = lambda **k: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw, **k)
-    earlier = {}
-    if variant in step_kernel.WARP_DESIGN:
-        # in turns with the thread-per-env design on the same inputs: warp,
-        # thread, thread, warp
-        turns = [cuda_ms(lambda: launch(thread_design=thread), TIMED_LAUNCHES)
-                 for thread in (False, True, True, False)]
-        ms = (turns[0] + turns[3]) / 2
-        earlier = dict(earlier_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
-    else:
-        ms = cuda_ms(launch, TIMED_LAUNCHES)
+    # in turns with the thread-per-env design on the same inputs: warp,
+    # thread, thread, warp
+    turns = [cuda_ms(lambda: launch(thread_design=thread), TIMED_LAUNCHES)
+             for thread in (False, True, True, False)]
+    ms = (turns[0] + turns[3]) / 2
     wrapper_ms = cuda_ms(lambda: step_kernel.control_step(model, *args, **kw), TIMED_LAUNCHES)
     plain_ms = cuda_ms(lambda: plain_version(model, args, kw), 3)
     n_stones, batch = args[3].shape[1], args[0].shape[0]
@@ -548,7 +550,8 @@ def time_variant(env, variant: str, args, kw) -> dict:
                                            rot) * batch
     nbytes = step_kernel.control_step_bytes(model, n_stones, pd) * batch
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    got = dict(variant=variant, batch=batch, ms=ms, **earlier, wrapper_ms=wrapper_ms,
+    got = dict(variant=variant, batch=batch, ms=ms, earlier_ms=(turns[1] + turns[2]) / 2,
+               turns_ms=turns, wrapper_ms=wrapper_ms,
                plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                flops=flops, bytes=nbytes)
@@ -1057,6 +1060,60 @@ def training_loop_path() -> dict:
     return out
 
 
+def mike_path() -> dict:
+    """Trainer.train on the round-5 Mike run, from the CLI's parser, cut to
+    one update: its control steps and its test fleet's episode length,
+    each one K2 launch (MIKE_LAUNCHES); progress.csv with the reference
+    header, finite losses and the test fleet's columns; the update's
+    rollout / update / test fleet split."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "r5_mike_scratch")
+        cfg = parse_cli(R5_MIKE + [f"experiment_dir={exp}"])
+        cfg = parse_cli([f"num_frames={cfg.episode_steps}"], base=cfg)
+        trainer = Trainer(cfg)
+        env = trainer.env.cfg
+        if (env.name, env.model.name, env.support, env.plank_hy) != (
+                "MikeStepperEnv-v0", "mike", "plank", 1.5):
+            raise AssertionError(f"the Mike run built {env.name} ({env.model.name}, "
+                                 f"{env.support} {env.plank_hy})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        steps = cfg.num_updates * cfg.num_steps + env.max_episode_steps
+        if steps != MIKE_LAUNCHES:
+            raise AssertionError(f"the Mike run takes {steps} control steps")
+        check_launches("Mike training loop", launches, "K2", steps, plain[0])
+        header, rows = read_progress(os.path.join(exp, "progress.csv"))
+    if header != PROGRESS_HEADER:
+        raise AssertionError(f"Mike progress.csv header {header}")
+    if [r["iter"] for r in rows] != ["1"]:
+        raise AssertionError(f"Mike progress.csv rows for updates {[r['iter'] for r in rows]}")
+    for col in ("entropy", "value_loss", "action_loss", "mean_rew", "test_mean_rew"):
+        if not math.isfinite(float(rows[0][col])):
+            raise AssertionError(f"Mike progress.csv: {col} = {rows[0][col]}")
+    out = dict(env=env.name, model=env.model.name, launches=launches["K2"], control_steps=steps,
+               seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               split=trainer.update_times[0],
+               rollout_ms_per_step=1e3 * trainer.update_times[0]["rollout_s"] / cfg.num_steps,
+               test_ms_per_step=1e3 * trainer.update_times[0]["test_s"] / env.max_episode_steps,
+               progress={k: rows[0][k] for k in ("fps", "entropy", "value_loss", "action_loss",
+                                                  "mean_rew", "test_mean_rew")})
+    print("K2 path (training loop, round-5 Mike):", json.dumps(out), flush=True)
+    return out
+
+
 def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
     """2 + 2 updates against 4 unbroken (Walker3D, fixed curriculum, no test
     fleet, as tests/test_runtime.py runs it): every progress.csv column but
@@ -1116,12 +1173,14 @@ def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from steppingstone_tpu_torch.envs import make_env
     from steppingstone_tpu_torch.physics import step_kernel
 
     card = card_line()
@@ -1132,7 +1191,7 @@ def main() -> int:
 
     envs = {v: variant_env(v) for v in VARIANT_ENVS}
     occupancy = {}
-    for variant in step_kernel.WARP_DESIGN:
+    for variant in step_kernel.VARIANTS:
         model, (pd, plank, rot) = envs[variant].cfg.model, step_kernel.VARIANTS[variant]
         n_stones = envs[variant].cfg.n_stones
         floats = step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
@@ -1152,6 +1211,9 @@ def main() -> int:
         timings[variant] = time_variant(env, variant, *results[NUM_ENVS][1])
         path_timings[variant] = {str(b): time_variant(env, variant, *results[b][1])
                                  for b in PATH_BATCHES.get(variant, ())}
+    # K2 on Mike's states, at its round-5 run's fleet and test fleet
+    mike = make_env("MikeStepperEnv-v0", plank_class="LargePlank")
+    checks["K2"] += [check_variant(mike, "K2", b)[0] for b in (R5_ENVS, R5_TEST_ENVS)]
 
     paths = {"K1": rollout_path(envs["K1"], "K1", ROLLOUT_STEPS, detail=True)}
     card_vs_cpu()
@@ -1168,10 +1230,12 @@ def main() -> int:
     paths["K2+K3+K4"] = rotated_loop(envs["K2+K3+K4"], "K2+K3+K4", ROT_PLANK_STEPS)
     loop = training_loop_path()
     paths["K2"] = dict(launches=loop["first"]["launches"] + loop["resumed"]["launches"])
+    mike_run = mike_path()
     resume_is_total()
     # a variant's other paths, with their launches
     other_paths = {
-        "K2": {"Walker3D LargePlank train_iteration": walker_plank["launches"]},
+        "K2": {"Walker3D LargePlank train_iteration": walker_plank["launches"],
+               "round-5 Mike Trainer.train": mike_run["launches"]},
         "K4": {"rotated Walker3D engine.step loop": rotated_walker["launches"]},
     }
 
@@ -1185,7 +1249,7 @@ def main() -> int:
             replaces="steppingstone_tpu/physics/pallas_step.py:733",
             specialization=f"pd={pd}, support_hy={1.5 if plank else None}, "
                            f"joint_rot={'set' if rot else None}",
-            design="warp per env" if variant in step_kernel.WARP_DESIGN else "thread per env",
+            design="warp per env",
             launches=paths[variant]["launches"],
             other_paths=other_paths.get(variant, {}),
             max_abs_err=max(max(x["max_q_err"], x["max_qd_err"]) for x in c),
@@ -1195,7 +1259,7 @@ def main() -> int:
             checked_batches=[x["batch"] for x in c],
             ms=t["ms"],
             # the thread-per-env design's time in this run, same inputs
-            earlier_ms=t.get("earlier_ms"),
+            earlier_ms=t["earlier_ms"],
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"],
             bound_by=t["bound_by"],
@@ -1205,10 +1269,11 @@ def main() -> int:
             flops=t["flops"],
             bytes=t["bytes"],
             # at the batch sizes of its path (the 4096-env numbers above)
-            path_batches={b: {k: p.get(k) for k in ("ms", "earlier_ms", "bound_ms", "plain_ms")}
+            path_batches={b: {k: p[k] for k in ("ms", "earlier_ms", "bound_ms", "plain_ms")}
                           for b, p in path_timings[variant].items()},
-            occupancy=occupancy.get(variant),
+            occupancy=occupancy[variant],
         ))
+    print(f"wall: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print("card:", card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

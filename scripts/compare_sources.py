@@ -10,10 +10,11 @@ baseline).
 `--source` defaults to the package's csrc/control_step.cu; `--baseline` is
 another version of it, such as the parent commit's (unpacked with `git
 archive`) or one with other launch bounds. Both must take the arguments of
-`control_step_launch` that physics/step_kernel.py passes. Each variant runs
-on the inputs chip_smoke.py checks it on. Prints ptxas's registers, stack
-frame and spills of both builds, then one JSON line per variant and batch;
-exits non-zero if any output differs in any bit.
+`control_step_launch` that physics/step_kernel.py passes. `--variants`
+takes any of the eight (K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4);
+each runs on the inputs chip_smoke.py checks it on. Prints ptxas's
+registers, stack frame and spills of both builds, then one JSON line per
+variant and batch; exits non-zero if any output differs in any bit.
 """
 
 from __future__ import annotations

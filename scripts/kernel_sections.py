@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where control_step_warp<PD, PLANK, ROT> (kernels K1, K2, K3, K2+K3, K4
-and K3+K4) spends its cycles, on one NVIDIA GPU.
+"""Where control_step_warp<PD, PLANK, ROT> (all eight variants of kernels
+K1..K4) spends its cycles, on one NVIDIA GPU.
 
     python3 scripts/kernel_sections.py [--batches 64,4096] [--source PATH]
-        [--variants K1,K2,K3,K2+K3,K4,K3+K4]
+        [--variants K1,K2,K3,K2+K3,K4,K2+K4,K3+K4,K2+K3+K4]
 
 Builds, for this measurement only, a copy of the kernel source (default:
 steppingstone_tpu_torch/csrc/control_step.cu) with clock64() stamps at
@@ -13,14 +13,15 @@ for the warp (__syncwarp), and lane 0 adds the cycles since the last stamp
 to its section's counter. Runs K1 (Walker3D torques over discs), K2
 (Walker3D torques over LargePlank planks), K3 (Cassie stable PD over
 discs), K2+K3 (Cassie stable PD over LargePlank planks), K4 (Walker3D
-torques over discs with fixed joint rotations drawn from a seed) and
-K3+K4 (Cassie stable PD over discs, rotated alike) on the inputs
-chip_smoke.py checks them on, at each batch size. Prints ptxas's registers,
-stack frame and spills of the source as it is, then one JSON line per
-kernel and batch: the mean cycles per warp and launch of each section (the
-loop's sections summed over the substeps), their sum and shares, the
-kernel's time per launch built from the source as it is and stamped, and
-its resident envs per SM (the occupancy calculator). `--source` measures
+torques over discs with fixed joint rotations drawn from a seed), K2+K4
+(the same over LargePlank planks), K3+K4 (Cassie stable PD over discs,
+rotated alike) and K2+K3+K4 (the same over LargePlank planks) on the
+inputs chip_smoke.py checks them on, at each batch size. Prints ptxas's
+registers, stack frame and spills of the source as it is, then one JSON
+line per kernel and batch: the mean cycles per warp and launch of each
+section (the loop's sections summed over the substeps), their sum and
+shares, the kernel's time per launch built from the source as it is and
+stamped, and its resident envs per SM (the occupancy calculator). `--source` measures
 another version of the kernel, such as one with other launch bounds.
 """
 
@@ -100,7 +101,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="64,4096")
     ap.add_argument("--source", default=str(step_kernel.SOURCE))
-    ap.add_argument("--variants", default="K1,K2,K3,K2+K3,K4,K3+K4")
+    ap.add_argument("--variants", default="K1,K2,K3,K2+K3,K4,K2+K4,K3+K4,K2+K3+K4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_sections: no CUDA device is available", file=sys.stderr)

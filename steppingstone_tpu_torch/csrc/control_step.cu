@@ -3,10 +3,8 @@
 //
 // Replaces the TPU kernel steppingstone_tpu/physics/pallas_step.py
 // (`build_batched_step`, the pallas_call at pallas_step.py:733) in all its
-// specializations. K1, K2, K3, K2+K3, K4 and K3+K4 run
-// `control_step_warp<PD, PLANK, ROT>` (a warp per env, below); K2+K4 and
-// K2+K3+K4 run compile-time variants of one thread-per-env body,
-// `control_step_kernel<PD, PLANK, ROT>`. The flags name every variant:
+// specializations. Every variant runs `control_step_warp<PD, PLANK, ROT>`
+// (a warp per env, below); the flags name them:
 //   K1    <false, false, false>  torque actuation, disc support
 //   K2    <false, true, false>   plank support (`support_hy`, pallas_step.py:
 //                                420-431, 648-657): each stone's in-plane axes
@@ -27,7 +25,8 @@
 //                                product (no snapping: the Pallas kernel's
 //                                snap moves values by < 1e-12, below fp32)
 //   and their combinations K2+K3, K2+K4, K3+K4, K2+K3+K4.
-// The thread-per-env K1, K2, K3, K2+K3, K4 and K3+K4 stay built behind
+// The first design, compile-time variants of one thread-per-env body
+// (`control_step_kernel<PD, PLANK, ROT>`), stays built for all eight behind
 // `control_step_launch_thread`, only to time the two designs against each
 // other on the same inputs.
 // It computes the same function as the plain PyTorch version
@@ -52,8 +51,7 @@
 // and the per-env scratch (body frames, packed mass matrix, 12.6-13.4 KB a
 // thread) in local memory. 4096 envs fill only ~1 warp per SM scheduler
 // and nothing hides the scratch's trips to L2, so it is latency-bound and
-// far from that floor; `control_step_warp` below is the answer for all but
-// K2+K4 and K2+K3+K4.
+// far from that floor; `control_step_warp` below is the answer.
 // The fixed joint rotations (K4) stay out of the struct, which would pass
 // the classic 4 KB kernel-parameter limit with them: they are a small
 // (NB, 4) device array read with __ldg loads, and a bit mask `rot_rows`
@@ -495,22 +493,24 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
 }
 
 // ===========================================================================
-// control_step_warp<PD, PLANK, ROT>: K1 <false, false, false>, K2 <false,
-// true, false>, K3 <true, false, false>, K2+K3 <true, true, false>, K4
-// <false, false, true> and K3+K4 <true, false, true>, a warp per env.
+// control_step_warp<PD, PLANK, ROT>: all eight variants, a warp per env
+// (K1 <false, false, false> ... K2+K3+K4 <true, true, true>).
 //
-// Replaces pallas_step.py:733 in its joint_rot=None specializations (K1:
-// pd=False, support_hy=None; K2: support_hy=<float>; K3: pd=True; K2+K3:
-// both) and in K4 (joint_rot set) and K3+K4 (with pd=True). It computes
-// what control_step_kernel<PD, PLANK, ROT> computes, with the same
-// arguments, (k, B) layout and outputs. Stable PD (PD) adds only
-// registers: lane j holds joint j's target, every lane the env's power,
-// and the joint lanes add the PD torque and gains in the serial body's
-// order; with PD false the kernel is K1's and K2's code as it was. Rotated
-// frames (ROT) add one Hamilton product in the tree-level pass: the lane
-// of a body whose `rot_rows` bit is set forms quat[p] * jrot[i] (read with
-// __ldg) before the hinge's product, in the serial body's order; no shared
-// memory and no sync more, and with ROT false the code is as it was.
+// Replaces pallas_step.py:733 in each of its specializations: K1 (pd=False,
+// support_hy=None), K2 (support_hy=<float>), K3 (pd=True), K4 (joint_rot
+// set) and their combinations. It computes what control_step_kernel<PD,
+// PLANK, ROT> computes, with the same arguments, (k, B) layout and
+// outputs. Planks (PLANK) add each stone's in-plane axes to the set-up and
+// the box bound to the stone test. Stable PD (PD) adds only registers:
+// lane j holds joint j's target, every lane the env's power, and the joint
+// lanes add the PD torque and gains in the serial body's order; with PD
+// false the kernel is K1's and K2's code as it was. Rotated frames (ROT)
+// add one Hamilton product in the tree-level pass: the lane of a body
+// whose `rot_rows` bit is set forms quat[p] * jrot[i] (read with __ldg)
+// before the hinge's product, in the serial body's order; no shared memory
+// and no sync more, and with ROT false the code is as it was. The three
+// touch separate sections, so K2+K4 and K2+K3+K4 are the plank set-up and
+// bound with the rotated tree pass, and no body is forked.
 //
 // Bound: fp32 operations (`control_step_flops`), as above. The
 // thread-per-env body is held back by occupancy (a thread per env) and by
@@ -522,10 +522,10 @@ control_step_kernel(const __grid_constant__ ModelData m, int B, int S, float hy_
 //    by `warp_layout` from the model's NB, NC and the stone count (Walker3D:
 //    7.4 KB on discs, 7.8 KB on planks; Cassie 4.9 / 5.4 KB; against
 //    12.6-13.4 KB of local memory a thread; the rotation adds none), so 24
-//    envs are resident on an SM: registers bound it in the instantiations
-//    without ROT (80 a thread, 40-64 bytes spilled; a PD-only bound of 8
-//    blocks, 64 registers, spilled 132-152 bytes and lost at 64 and 1,024
-//    envs what it won at 4,096);
+//    envs are resident on an SM: registers bound it (80 a thread in every
+//    instantiation, 40-64 bytes spilled; a PD-only bound of 8 blocks, 64
+//    registers, spilled 132-152 bytes and lost at 64 and 1,024 envs what it
+//    won at 4,096);
 //  - each section's work is spread over the lanes: a stone per lane for the
 //    normals and plank axes; a sphere's stone tests over a group of lanes;
 //    forward kinematics, motion axes, body velocities and the RNEA's
@@ -1162,8 +1162,7 @@ int control_step_tables_size(void) { return T_SIZE; }
 int control_step_warp_envs_per_block(void) { return WARP_ENVS; }
 
 // Envs of control_step_warp<pd, plank, rot> resident on one SM for this
-// model and stone count (the occupancy calculator), or -(CUDA error);
-// K2+K4 and K2+K3+K4 have no warp instantiation
+// model and stone count (the occupancy calculator), or -(CUDA error)
 int control_step_warp_envs_per_sm(int nb, int nc, int S, int pd, int plank, int rot) {
   const WarpLayout lay = warp_layout(nb, nc, S, plank != 0);
   int blocks = 0;
@@ -1174,24 +1173,19 @@ int control_step_warp_envs_per_sm(int nb, int nc, int S, int pd, int plank, int 
     case 2: err = warp_blocks_per_sm<true, false, false>(lay, &blocks); break;
     case 3: err = warp_blocks_per_sm<true, true, false>(lay, &blocks); break;
     case 4: err = warp_blocks_per_sm<false, false, true>(lay, &blocks); break;
+    case 5: err = warp_blocks_per_sm<false, true, true>(lay, &blocks); break;
     case 6: err = warp_blocks_per_sm<true, false, true>(lay, &blocks); break;
-    default: err = cudaErrorInvalidValue; break;
+    default: err = warp_blocks_per_sm<true, true, true>(lay, &blocks); break;
   }
   return err == cudaSuccess ? blocks * WARP_ENVS : -(int)err;
 }
 
-// the thread-per-env body's arguments, in both launch entries below
-#define CONTROL_STEP_ARGS                                                                    \
-  model, B, S, hy_margin, rot_rows, jrot, q, qd, tau, target, power, stones, stone_radius, \
-      use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
-
-// Launch the (pd, plank, rot) variant on `stream`: K1, K2, K3, K2+K3, K4
-// and K3+K4 run control_step_warp with `model_dev`, a copy of *model on the
-// device, and the model's `tables` (T_SIZE int32 on the device: nlev
-// levels, npairs mass-matrix entries); K2+K4 and K2+K3+K4 run
-// control_step_kernel. target and power are read only when pd != 0,
-// hy_margin only when plank != 0, rot_rows and jrot (NB, 4) only when
-// rot != 0. Returns the CUDA error of the launch (0 = launched).
+// Launch the (pd, plank, rot) variant on `stream`: control_step_warp with
+// `model_dev`, a copy of *model on the device, and the model's `tables`
+// (T_SIZE int32 on the device: nlev levels, npairs mass-matrix entries).
+// target and power are read only when pd != 0, hy_margin only when
+// plank != 0, rot_rows and jrot (NB, 4) only when rot != 0. Returns the
+// CUDA error of the launch (0 = launched).
 int control_step_launch(const ModelData* model, int B, int S, int pd, int plank, int rot,
                         float hy_margin, unsigned int rot_rows, int nlev, int npairs,
                         const ModelData* model_dev, const int* tables, const float* jrot,
@@ -1209,25 +1203,27 @@ int control_step_launch(const ModelData* model, int B, int S, int pd, int plank,
     case 2: err = launch_warp<true, false, false>(WARP_ARGS); break;
     case 3: err = launch_warp<true, true, false>(WARP_ARGS); break;
     case 4: err = launch_warp<false, false, true>(WARP_ARGS); break;
-    case 5: launch<false, true, true>(CONTROL_STEP_ARGS); break;
+    case 5: err = launch_warp<false, true, true>(WARP_ARGS); break;
     case 6: err = launch_warp<true, false, true>(WARP_ARGS); break;
-    default: launch<true, true, true>(CONTROL_STEP_ARGS); break;
+    default: err = launch_warp<true, true, true>(WARP_ARGS); break;
   }
 #undef WARP_ARGS
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // The thread-per-env body in the (pd, plank, rot) variant
-// (control_step_kernel<pd, plank, rot>), for timing the two designs of K1,
-// K2, K3, K2+K3, K4 and K3+K4 against each other; nothing on a path calls
-// it for those. target and power are read only when pd != 0, rot_rows and
-// jrot only when rot != 0.
+// (control_step_kernel<pd, plank, rot>), for timing the two designs
+// against each other; nothing on a path calls it. target and power are
+// read only when pd != 0, rot_rows and jrot only when rot != 0.
 int control_step_launch_thread(const ModelData* model, int B, int S, int pd, int plank, int rot,
                                float hy_margin, unsigned int rot_rows, const float* jrot,
                                const float* q, const float* qd, const float* tau,
                                const float* target, const float* power, const float* stones,
                                const float* stone_radius, const float* use_ground, float* q_out,
                                float* qd_out, float* info_out, void* stream) {
+#define CONTROL_STEP_ARGS                                                                    \
+  model, B, S, hy_margin, rot_rows, jrot, q, qd, tau, target, power, stones, stone_radius, \
+      use_ground, q_out, qd_out, info_out, (cudaStream_t)stream
   switch ((rot ? 4 : 0) | (pd ? 2 : 0) | (plank ? 1 : 0)) {
     case 0: launch<false, false, false>(CONTROL_STEP_ARGS); break;
     case 1: launch<false, true, false>(CONTROL_STEP_ARGS); break;

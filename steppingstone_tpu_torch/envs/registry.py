@@ -1,13 +1,18 @@
 """Env registry (port of steppingstone_tpu/envs/registry.py): reference env
-IDs -> constructors; `mocca_envs:<Name>` prefixes are accepted and stripped.
-Walker3D and Cassie are ported; Mike waits for a later slice."""
+IDs -> constructors; `mocca_envs:<Name>` prefixes are accepted and stripped."""
 
 from __future__ import annotations
 
-from steppingstone_tpu_torch.envs.stepper import StepperEnv, cassie_stepper, walker3d_stepper
+from steppingstone_tpu_torch.envs.stepper import (
+    StepperEnv,
+    cassie_stepper,
+    mike_stepper,
+    walker3d_stepper,
+)
 
 _CONSTRUCTORS = {
     "Walker3DStepperEnv-v0": walker3d_stepper,
+    "MikeStepperEnv-v0": mike_stepper,
     "CassieStepper-v1": cassie_stepper,
     # historical alias
     "Walker3DMocapStepperEnv-v0": walker3d_stepper,

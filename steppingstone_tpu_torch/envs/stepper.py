@@ -1,7 +1,7 @@
-"""Stepping-stone environments, Walker3D (torque) and Cassie (stable PD)
-(port of steppingstone_tpu/envs/stepper.py).
+"""Stepping-stone environments, Walker3D and Mike (torque) and Cassie
+(stable PD) (port of steppingstone_tpu/envs/stepper.py).
 
-- Walker3D obs 60 / action 21: [height above the lowest foot,
+- Walker3D and Mike obs 60 / action 21: [height above the lowest foot,
   heading-frame velocity (3), roll, pitch] + 21 limit-normalized joint
   angles + 21 joint speeds * 0.1 + 2 foot contacts + 2 lookahead stones x
   (sin(a) d, cos(a) d, dz, x_tilt, y_tilt)
@@ -576,6 +576,14 @@ def _overrides(kw: dict) -> dict:
 def walker3d_stepper(device=None, **kw) -> StepperEnv:
     """Walker3DStepperEnv-v0; kw are StepperConfig overrides or `plank_class`."""
     cfg = StepperConfig(name="Walker3DStepperEnv-v0", model=walker_mod.walker3d(),
+                        actuation="torque", obs_dim=60, **_overrides(kw))
+    return StepperEnv(cfg, device)
+
+
+def mike_stepper(device=None, **kw) -> StepperEnv:
+    """MikeStepperEnv-v0: Walker3D's env on the heavier, taller Mike; kw
+    are StepperConfig overrides or `plank_class`."""
+    cfg = StepperConfig(name="MikeStepperEnv-v0", model=walker_mod.mike(),
                         actuation="torque", obs_dim=60, **_overrides(kw))
     return StepperEnv(cfg, device)
 

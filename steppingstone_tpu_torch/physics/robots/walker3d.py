@@ -1,5 +1,5 @@
-"""Walker3D humanoid morphology (own copy of
-steppingstone_tpu/physics/robots/walker3d.py; Mike waits for a later slice).
+"""Walker3D and Mike humanoid morphologies (own copy of
+steppingstone_tpu/physics/robots/walker3d.py).
 
 21 actuated DoF in the exact action order of the reference's HUD labels
 (reference `common/render_utils.py:47-69`): abdomen z/y/x, right hip x/z/y,
@@ -26,6 +26,7 @@ Frame convention: x forward, y left, z up; right side of the body is -y.
 
 from __future__ import annotations
 
+import dataclasses
 from functools import lru_cache
 
 import numpy as np
@@ -169,6 +170,19 @@ RUNNING_START = {
 @lru_cache(maxsize=None)
 def walker3d() -> RobotModel:
     m = _humanoid("walker3d", mass_scale=1.0, len_scale=1.0)
+    _check(m)
+    return m
+
+
+@lru_cache(maxsize=None)
+def mike() -> RobotModel:
+    """Mike: Walker3D's skeleton, 1.45x the mass and 1.04x the length.
+    Torque caps scale with the mass (Walker3D's strength-to-weight), and
+    the link inertias by 1.45 * 1.04^2, which `_humanoid` leaves at
+    Walker3D's constants."""
+    m = _humanoid("mike", mass_scale=1.45, len_scale=1.04)
+    m = dataclasses.replace(m, torque_limit=m.torque_limit * 1.45,
+                            inertia=m.inertia * (1.45 * 1.04 ** 2))
     _check(m)
     return m
 

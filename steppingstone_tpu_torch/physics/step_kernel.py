@@ -11,14 +11,12 @@ each of its specializations:
 - K4: rotated joint frames (a model with `joint_rot`, from a URDF);
 - their combinations K2+K3, K2+K4, K3+K4 and K2+K3+K4.
 
-K1, K2, K3, K2+K3, K4 and K3+K4 (`WARP_DESIGN`) run
-`control_step_warp<PD, PLANK, ROT>` (a warp per env, its scratch in shared
-memory laid out by `warp_layout`, the tree walked with the model's
-`kernel_tables`); K2+K4 and K2+K3+K4 run the thread-per-env template
-`control_step_kernel<PD, PLANK, ROT>`. The thread-per-env versions of the
-six warp-design variants stay built for timing the two designs against
-each other (`launch(..., thread_design=True)`, counted as "K1@thread" ...
-"K3+K4@thread", `THREAD_DESIGN`); no path takes them.
+Every variant runs `control_step_warp<PD, PLANK, ROT>` (a warp per env,
+its scratch in shared memory laid out by `warp_layout`, the tree walked
+with the model's `kernel_tables`). The first design, the thread-per-env
+template `control_step_kernel<PD, PLANK, ROT>`, stays built for timing the
+two designs against each other (`launch(..., thread_design=True)`, counted
+as "K1@thread" ... "K2+K3+K4@thread", `THREAD_DESIGN`); no path takes it.
 
 It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
@@ -73,13 +71,9 @@ VARIANTS = {"K1": (False, False, False), "K2": (False, True, False),
             "K3": (True, False, False), "K2+K3": (True, True, False),
             "K4": (False, False, True), "K2+K4": (False, True, True),
             "K3+K4": (True, False, True), "K2+K3+K4": (True, True, True)}
-
-
-# the variants that run control_step_warp; K2+K4 and K2+K3+K4 run the
-# thread-per-env body
-WARP_DESIGN = ("K1", "K2", "K3", "K2+K3", "K4", "K3+K4")
-# the thread-per-env versions of those, launched only to time the designs
-THREAD_DESIGN = {f"{v}@thread": v for v in WARP_DESIGN}
+# the thread-per-env design of each variant, launched only to time the
+# two designs
+THREAD_DESIGN = {f"{v}@thread": v for v in VARIANTS}
 COUNTED = (*VARIANTS, *THREAD_DESIGN)
 
 
@@ -228,7 +222,7 @@ class ControlStepKernel:
     def __init__(self, source: Path = SOURCE):
         self.source = Path(source)
         self.reset_counts()
-        self.build_log = ""  # ptxas's register / local-memory report of the last build
+        self.build_log = ""  # ptxas's register / local-memory report of the library
         self._lib = None
         self._models: dict = {}
         self._rotations: dict = {}
@@ -240,11 +234,13 @@ class ControlStepKernel:
         return BUILD_DIR / f"libcontrol_step_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> float:
-        """Compile (unless the library for this source exists) and load.
-        Returns the seconds spent."""
+        """Compile (unless the library for this source exists) and load;
+        ptxas's report is kept beside the library. Returns the seconds
+        spent."""
         t0 = time.perf_counter()
         if self._lib is None:
             path = self.library_path()
+            log = path.with_suffix(".log")
             if not path.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -252,13 +248,14 @@ class ControlStepKernel:
                 try:
                     done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
                                           check=True, capture_output=True, text=True)
-                    self.build_log = done.stderr
+                    log.write_text(done.stderr)
                     os.replace(tmp, path)  # atomic: concurrent builds agree
                 except subprocess.CalledProcessError as err:
                     raise RuntimeError(f"nvcc failed on {self.source}:\n{err.stderr}") from err
                 finally:
                     if os.path.exists(tmp):
                         os.remove(tmp)
+            self.build_log = log.read_text() if log.exists() else ""
             lib = ctypes.CDLL(str(path))
             lib.control_step_model_size.restype = ctypes.c_int
             lib.control_step_model_size.argtypes = []
@@ -339,10 +336,10 @@ class ControlStepKernel:
         (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
         float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
         for planks `support_hy` (a float); a model with `joint_rot` runs a
-        K4 variant. `thread_design` launches the thread-per-env body of a
-        `WARP_DESIGN` variant in place of control_step_warp, for timing the
-        two. Returns new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers
-        check inputs (`control_step` does)."""
+        K4 variant. `thread_design` launches the variant's thread-per-env
+        body in place of control_step_warp, for timing the two. Returns
+        new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers check
+        inputs (`control_step` does)."""
         self.build()
         model_key = (model, cparams, substeps)
         md = self._models.get(model_key)
@@ -351,8 +348,6 @@ class ControlStepKernel:
         pd, plank = target_t is not None, support_hy is not None
         rot = model.joint_rot is not None
         name = variant(pd, plank, rot)
-        if thread_design and name not in THREAD_DESIGN.values():
-            raise ValueError(f"{name} has no second design")
         B, S = q_t.shape[1], stones_t.shape[0] // 6
         outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
                 for n in (model.nq, model.ndof, model.njoints + 7)]
@@ -375,10 +370,8 @@ class ControlStepKernel:
                     *(ptr(t) for t in (jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
                                        stone_radius, use_ground, *outs)), stream)
             else:
-                md_dev, tables, nlev, npairs = None, None, 0, 0
-                if name in WARP_DESIGN:
-                    md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S,
-                                                                       plank, q_t.device)
+                md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
+                                                                   q_t.device)
                 ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
                        stone_radius, use_ground)
                 err = self._lib.control_step_launch(

@@ -1,5 +1,5 @@
-"""The host side of `control_step_warp<PD, PLANK, ROT>` (kernels K1, K2,
-K3, K2+K3, K4 and K3+K4, a warp per env), checked on the CPU: the model's
+"""The host side of `control_step_warp<PD, PLANK, ROT>` (all eight
+variants of kernels K1..K4, a warp per env), checked on the CPU: the model's
 tables (bodies by tree level, each body's children, the mass matrix's
 ancestor pattern), the per-env layout of the scratch in shared memory
 against the kernel's source, the launch entries' dispatch of (pd, plank,
@@ -153,40 +153,38 @@ def _dispatch(body):
             (fn, tuple(f == "true" for f in flags)) for key, fn, *flags in cases}
 
 
-# the variants that run control_step_warp (K1, K2, K3, K2+K3, K4, K3+K4);
-# K2+K4 and K2+K3+K4 (rot and plank) run the thread-per-env body
+# every (pd, plank, rot): the variants that run control_step_warp
 ON_WARP = {(pd, plank, rot) for pd in (False, True) for plank in (False, True)
-           for rot in (False, True) if not (rot and plank)}
+           for rot in (False, True)}
 
 LAUNCH = ("int control_step_launch(", "#undef WARP_ARGS")
 # each launch entry's body in csrc/control_step.cu (from, to), the variants
-# (pd, plank, rot) checked there, and what it instantiates for each, or
-# None where it instantiates nothing: the launch without ROT and with it
-# (K4 and K3+K4 on the warp design, K2+K4 and K2+K3+K4 thread per env), the
-# thread-per-env timing (every variant's body) and the occupancy query (the
-# warp instantiations only)
+# (pd, plank, rot) checked there, and what it instantiates for each: the
+# launch without ROT and with it (both control_step_warp), the
+# thread-per-env timing (every variant's control_step_kernel) and the
+# occupancy query (every warp instantiation)
 DISPATCH = {
     "warp launch": (LAUNCH, lambda f: not f[2], lambda f: ("launch_warp", f)),
-    "K4 launch": (LAUNCH, lambda f: f[2],
-                  lambda f: ("launch_warp", f) if f in ON_WARP else ("launch", f)),
+    "K4 launch": (LAUNCH, lambda f: f[2], lambda f: ("launch_warp", f)),
     "thread-per-env timing": (("int control_step_launch_thread(", '}  // extern "C"'),
                               lambda f: True, lambda f: ("launch", f)),
     "occupancy": (("int control_step_warp_envs_per_sm(", "int control_step_launch("),
-                  lambda f: True, lambda f: ("warp_blocks_per_sm", f) if f in ON_WARP else None),
+                  lambda f: True, lambda f: ("warp_blocks_per_sm", f)),
 }
 
 
 @pytest.mark.parametrize("entry", list(DISPATCH))
 def test_launch_entries_dispatch_each_variant(entry):
-    """Each (pd, plank, rot) reaches its own instantiation: K1, K2, K3,
-    K2+K3, K4 and K3+K4 control_step_warp<PD, PLANK, ROT>, K2+K4 and
-    K2+K3+K4 and the thread-per-env timing control_step_kernel<PD, PLANK,
-    ROT>; the warp template is instantiated for no plank+rot variant."""
+    """Each (pd, plank, rot) reaches its own instantiation: all eight
+    launch control_step_warp<PD, PLANK, ROT> (K2+K4 and K2+K3+K4 too), the
+    thread-per-env timing builds all eight control_step_kernel<PD, PLANK,
+    ROT>, and the occupancy query knows all eight warp instantiations."""
     src = SK.SOURCE.read_text()
     assert ("template <bool PD, bool PLANK, bool ROT>\n"
             "__global__ void __launch_bounds__(WARP_ENVS") in src
-    assert not re.search(r"(launch_warp|warp_blocks_per_sm|warp_prepare|control_step_warp)"
-                         r"<(true|false), true, true>", src)
+    for rot in ("false", "true"):  # the plank+rot instantiations exist
+        for fn in ("launch_warp", "warp_blocks_per_sm"):
+            assert re.search(rf"{fn}<(true|false), true, {rot}>", src), (fn, rot)
     (start, end), checked, expect = DISPATCH[entry]
     body = src[src.index(start):]
     body = body[:body.index(end, 1)]
@@ -194,8 +192,9 @@ def test_launch_entries_dispatch_each_variant(entry):
              for pd in (False, True) for plank in (False, True) for rot in (False, True)}
     cases = _dispatch(body)
     assert {k: c for k, c in cases.items() if checked(flags[k])} == {
-        k: expect(f) for k, f in flags.items() if checked(f) and expect(f)}
-    assert {SK.VARIANTS[v] for v in SK.WARP_DESIGN} == ON_WARP
+        k: expect(f) for k, f in flags.items() if checked(f)}
+    assert set(SK.VARIANTS.values()) == ON_WARP
+    assert set(SK.THREAD_DESIGN.values()) == set(SK.VARIANTS)
 
 
 @pytest.mark.parametrize("name", [*MODELS, "walker3d_rotated", "cassie_rotated"])

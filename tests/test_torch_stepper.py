@@ -222,13 +222,24 @@ def test_vec_env_curriculum_fanouts(envs):
 
 
 def test_make_env_ids(envs):
+    """The port knows the JAX registry's four ids, with or without the
+    `mocca_envs:` prefix, and refuses others naming the known ones."""
+    from steppingstone_tpu.envs.registry import ENV_IDS as JENV_IDS
+    from steppingstone_tpu_torch.envs.registry import ENV_IDS
+
     _, tenv = envs
     assert tenv.observation_dim == 60 and tenv.action_dim == 21
+    assert ENV_IDS == JENV_IDS and len(ENV_IDS) == 4
     env = tmake_env("mocca_envs:Walker3DStepperEnv-v0", device="cpu")
     assert env.cfg.name == "Walker3DStepperEnv-v0"
     cassie = tmake_env("mocca_envs:CassieStepper-v1", device="cpu", plank_class="Plank",
                        stall_timeout=0)
     assert (cassie.observation_dim, cassie.action_dim) == (51, 10)
     assert (cassie.cfg.support, cassie.cfg.plank_hy, cassie.cfg.stall_timeout) == ("plank", 0.6, 0)
-    with pytest.raises(KeyError, match="CassieStepper-v1"):
-        tmake_env("MikeStepperEnv-v0", device="cpu")
+    mike = tmake_env("mocca_envs:MikeStepperEnv-v0", device="cpu")
+    assert (mike.cfg.name, mike.cfg.model.name, mike.observation_dim, mike.action_dim) == (
+        "MikeStepperEnv-v0", "mike", 60, 21)
+    alias = tmake_env("Walker3DMocapStepperEnv-v0", device="cpu")
+    assert alias.cfg.name == "Walker3DStepperEnv-v0"
+    with pytest.raises(KeyError, match="MikeStepperEnv-v0"):
+        tmake_env("HumanoidStepperEnv-v0", device="cpu")

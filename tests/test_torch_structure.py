@@ -5,8 +5,7 @@ and the sources are where the builds expect them. The card-only tests
 hold the eight control-step variants (K1..K4 and their combinations)
 against their plain version and skip on a host without a GPU (run them on
 the card with `python3 -m pytest --noconftest tests/test_torch_structure.py`);
-K1, K2, K3, K2+K3, K4 and K3+K4 are control_step_warp<PD, PLANK, ROT>, a
-warp per env."""
+all eight are control_step_warp<PD, PLANK, ROT>, a warp per env."""
 
 import ast
 import dataclasses
@@ -75,14 +74,17 @@ def test_entry_points_default_to_the_card():
         make_env("Walker3DStepperEnv-v0")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_env("CassieStepper-v1", plank_class="LargePlank")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_env("MikeStepperEnv-v0", plank_class="LargePlank")
     cfg = TrainConfig(num_processes=4, episode_steps=8, num_frames=8, num_tests=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg)
     # the training CLI runs on the card: without one it raises before it
     # writes anything
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        main(["num_processes=4", "episode_steps=8", "num_frames=8", "num_tests=0",
-              "experiment_dir=/nonexistent/never-created"])
+    for env_name in ("Walker3DStepperEnv-v0", "MikeStepperEnv-v0"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([f"env_name={env_name}", "num_processes=4", "episode_steps=8",
+                  "num_frames=8", "num_tests=0", "experiment_dir=/nonexistent/never-created"])
     assert Trainer(cfg, device="cpu").venv.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ActorCritic(60, 21)
@@ -284,12 +286,13 @@ def card():
 
 @pytest.mark.card
 @pytest.mark.parametrize("batch", [4096, 64])
-@pytest.mark.parametrize("variant", ["K1", "K2", "K3", "K2+K3", "K4", "K3+K4"])
+@pytest.mark.parametrize("variant", ["K1", "K2", "K3", "K2+K3", "K4", "K3+K4", "K2+K4",
+                                     "K2+K3+K4"])
 def test_warp_design_matches_plain_on_the_card(card, variant, batch):
-    """K1, K2, K3, K2+K3, K4 and K3+K4 run control_step_warp<PD, PLANK,
-    ROT> (a warp per env): against the plain version at the main path's
-    4096 envs and at 64 (one warp on an SM), counted under the variant and
-    never as the thread-per-env design."""
+    """Every variant runs control_step_warp<PD, PLANK, ROT> (a warp per
+    env): against the plain version at the main path's 4096 envs and at 64
+    (one warp on an SM), counted under the variant and never as the
+    thread-per-env design."""
     thread = f"{variant}@thread"
     before = step_kernel.CONTROL_STEP.launches[thread]
     _check_variant_on_the_card(variant, batch)

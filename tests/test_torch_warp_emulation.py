@@ -1,25 +1,27 @@
-"""control_step_warp<PD, PLANK, ROT> (kernels K1, K2, K3, K2+K3, K4 and
-K3+K4) run on the CPU, where there is no card: the kernel's part of
-csrc/control_step.cu is
-compiled with the host C++ compiler against tests/warp_emulation.h, which
-runs each lane as a thread and meets a warp's lanes at a barrier for
-__syncwarp and the shuffles, block after block. Its outputs are held to
-the plain version (engine._step_scan) with the Pallas kernel's bars (q
-2e-4, qd 2e-3/2e-2, foot force 1e-2/1.0), contact_force_sum (1e-3/1.0) and
-the diagnostics exactly: on Walker3D and Cassie torques over discs and
-planks, on Cassie stable PD over discs and planks, on a 2-body pendulum
-over 6 stones (2 spheres, so 16 lanes a sphere) and on a PD pendulum whose
-one joint has only kp and the other only kd (the gate kp != 0 || kd != 0),
-on Walker3D torques (K4) and Cassie stable PD (K3+K4) with fixed joint
-rotations drawn from a seed and on the rotated pendulum of
-tests/test_torch_urdf.py (K4), at ragged batches (the last block has idle
-warps). The emulated K3 and K2+K3 are also held to the JAX Pallas
-kernel's `pd=True` variant, and the emulated K4 and K3+K4 to its
-`joint_rot` variant, in interpret mode (the bars of
+"""control_step_warp<PD, PLANK, ROT> (all eight variants, K1..K4 and their
+combinations) run on the CPU, where there is no card: the kernel's part of
+csrc/control_step.cu is compiled with the host C++ compiler against
+tests/warp_emulation.h, which runs each lane as a thread and meets a
+warp's lanes at a barrier for __syncwarp and the shuffles, block after
+block. Its outputs are held to the plain version (engine._step_scan) with
+the Pallas kernel's bars (q 2e-4, qd 2e-3/2e-2, foot force 1e-2/1.0),
+contact_force_sum (1e-3/1.0) and the diagnostics exactly: on Walker3D and
+Cassie torques over discs and planks, on Cassie stable PD over discs and
+planks, on a 2-body pendulum over 6 stones (2 spheres, so 16 lanes a
+sphere) and on a PD pendulum whose one joint has only kp and the other
+only kd (the gate kp != 0 || kd != 0), on Walker3D torques (K4, K2+K4) and
+Cassie stable PD (K3+K4, K2+K3+K4) with fixed joint rotations drawn from
+a seed, over discs and planks, and on the rotated pendulum of
+tests/test_torch_urdf.py (K4, K2+K4), at ragged batches (the last block
+has idle warps); on the robots' planks a disc-bound run of the same inputs
+must differ, so the box bound bears load. The emulated K3 and K2+K3 are
+also held to the JAX Pallas kernel's `pd=True` variant, and the emulated
+K4, K3+K4, K2+K4 and K2+K3+K4 to its `joint_rot` variant (with
+`support_hy` for the last two), in interpret mode (the bars of
 tests/test_torch_physics.py) on a slice of its 1024-env tile. This checks
-the kernel's lane mapping, indexing, tables, synchronisation, PD terms
-and rotated frames; its speed and the CUDA compiler's view of it only the
-card shows (tests/test_torch_structure.py, chip_smoke.py)."""
+the kernel's lane mapping, indexing, tables, synchronisation, PD terms,
+plank bound and rotated frames; its speed and the CUDA compiler's view of
+it only the card shows (tests/test_torch_structure.py, chip_smoke.py)."""
 
 import ctypes
 import dataclasses
@@ -74,19 +76,18 @@ void lane_body(const ModelData* m, const WarpLayout& lay, int B, int S, float hy
                                     info_out);
 }
 
-// the instantiations that control_step_launch dispatches: K1, K2, K3,
-// K2+K3, K4 and K3+K4 (K2+K4 and K2+K3+K4 run the thread-per-env body)
+// the instantiations that control_step_launch dispatches: all eight
 extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank, int rot,
                             float hy_margin, unsigned rot_rows, const float* jrot, int nlev,
                             int npairs, const int* tab, const float* q, const float* qd,
                             const float* tau, const float* target, const float* power,
                             const float* st, const float* sr, const float* ug, float* q_out,
                             float* qd_out, float* info_out) {
-  if (rot && plank) return -2;
-  const LaneBody bodies[6] = {lane_body<false, false, false>, lane_body<false, true, false>,
+  const LaneBody bodies[8] = {lane_body<false, false, false>, lane_body<false, true, false>,
                               lane_body<true, false, false>, lane_body<true, true, false>,
-                              lane_body<false, false, true>, lane_body<true, false, true>};
-  const LaneBody run = rot ? bodies[4 + (pd != 0)] : bodies[2 * (pd != 0) + (plank != 0)];
+                              lane_body<false, false, true>, lane_body<false, true, true>,
+                              lane_body<true, false, true>, lane_body<true, true, true>};
+  const LaneBody run = bodies[4 * (rot != 0) + 2 * (pd != 0) + (plank != 0)];
   const WarpLayout lay = warp_layout(m->nb, m->nc, S, plank != 0);
   if ((long)WARP_ENVS * lay.size > (long)(sizeof(smem) / sizeof(float))) return -1;
   for (int b = 0; b < (B + WARP_ENVS - 1) / WARP_ENVS; ++b) {
@@ -252,6 +253,9 @@ CASES = {  # model, planks, stone count, batch, stable PD
     "walker3d_rot_disc": (_rot_walker3d, False, 20, 6, False),
     "cassie_rot_pd_disc": (_rot_cassie, False, 20, 7, True),
     "rot_pendulum_disc": (_rot_pendulum, False, 6, 5, False),
+    "walker3d_rot_plank": (_rot_walker3d, True, 20, 6, False),
+    "cassie_rot_pd_plank": (_rot_cassie, True, 20, 7, True),
+    "rot_pendulum_plank": (_rot_pendulum, True, 6, 5, False),
 }
 
 
@@ -276,6 +280,9 @@ def test_emulated_warp_kernel_matches_plain(emulated, case):
     if "pendulum" not in model.name:  # contacts, stones and limits engage
         assert (ref.contact_force_sum > 0).any() and (ref.foot_stone >= 0).any()
         assert ref.joint_at_limit.any()
+        if plank:  # and the plank's box bears load where a disc would not
+            disc = _emulate(emulated, model, args, **pd_kw)
+            assert (disc[1] - qd).abs().max() > 1e-2
     if model.name == "pd_gate_pendulum":
         # the kp-only and the kd-only joint each move otherwise without PD
         kp, kd, _ = engine.pd_gains(model, "cpu")
@@ -316,11 +323,14 @@ def test_emulated_pd_kernel_matches_pallas_interpret(emulated, support_hy):
     assert (info.contact_force_sum > 0).any() and info.joint_at_limit.any()
 
 
-@pytest.mark.parametrize("pd", [False, True])
-def test_emulated_rotated_kernel_matches_pallas_interpret(emulated, pd):
-    """The emulated K4 (torques) and K3+K4 (stable PD) against the TPU
-    kernel's `joint_rot` variant itself (with `pd=True` for K3+K4), run in
-    interpret mode at one 1024-env tile on the rotated pendulum of
+@pytest.mark.parametrize("pd,support_hy", [
+    pytest.param(False, None, id="False"), pytest.param(True, None, id="True"),
+    pytest.param(False, 0.6, id="False-0.6"), pytest.param(True, 0.6, id="True-0.6")])
+def test_emulated_rotated_kernel_matches_pallas_interpret(emulated, pd, support_hy):
+    """The emulated K4 (torques) and K3+K4 (stable PD), and on planks of
+    half-width 0.6 K2+K4 and K2+K3+K4, against the TPU kernel's `joint_rot`
+    variant itself (with `pd=True` for PD, `support_hy` for planks), run
+    in interpret mode at one 1024-env tile on the rotated pendulum of
     tests/test_torch_urdf.py and on its PD twin (the same rotation on the
     PD pendulum); the first 30 envs of the tile are emulated (a ragged last
     block) and held to the Pallas test's bars."""
@@ -342,14 +352,18 @@ def test_emulated_rotated_kernel_matches_pallas_interpret(emulated, pd):
                      power=torch.as_tensor(power[:slice_]))
     fn = pallas_step.build_batched_step(
         mj, jct.ContactParams(), 4, 6, jeng.SIM_DT, jeng.LIMIT_K, jeng.LIMIT_C,
-        jeng.MAX_QD, jdyn.GRAVITY, interpret=True, pd=pd)
+        jeng.MAX_QD, jdyn.GRAVITY, interpret=True, pd=pd, support_hy=support_hy)
     qn, qdn, d = fn(*(jnp.asarray(x) for x in ins))
     ref = jax.tree.map(lambda x: np.asarray(x)[:slice_], (qn, qdn, jeng.StepInfo(**d)))
     args = [torch.as_tensor(x[:slice_]) for x in (q, qd, tau, stones, sr, ug)]
-    out = _emulate(emulated, mt, args, **pd_kw)
+    out = _emulate(emulated, mt, args, support_hy=support_hy, **pd_kw)
     _check_step(out, ref)
     info = out[2]
     assert (info.contact_force_sum > 0).any() and info.joint_at_limit.any()
     # the rotation matters: the unrotated kernel puts the arm elsewhere
-    plain = _emulate(emulated, dataclasses.replace(mt, joint_rot=None), args, **pd_kw)
+    plain = _emulate(emulated, dataclasses.replace(mt, joint_rot=None), args,
+                     support_hy=support_hy, **pd_kw)
     assert (plain[1] - out[1]).abs().max() > 1e-2
+    if support_hy is not None:  # and so does the plank: a disc bound differs
+        disc = _emulate(emulated, mt, args, **pd_kw)
+        assert (disc[1] - out[1]).abs().max() > 1e-2
