@@ -17,7 +17,8 @@ order; any failure exits non-zero and no phase's failure is caught:
    discs and on planks, unrotated and with rotated frames
 3. each variant against its plain PyTorch version (engine._step_scan) on
    the card at B=4096 and a ragged B=1000 (K2 and K2+K3 also at 1024 and
-   64, the round-5 runs' fleet and test fleet), on states from a short rollout
+   64, the round-5 runs' fleet and test fleet, K2 also at 16, the value
+   grid's eval fleet), on states from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
    all occur; K1 on Walker3D torques over discs, K2 on Walker3D torques
@@ -26,7 +27,7 @@ order; any failure exits non-zero and no phase's failure is caught:
    with fixed joint rotations drawn from a seed (the repo holds no
    full-width URDF robot); K2 also on Mike's states at 1024 and 64 (its
    round-5 run's fleet and test fleet); then each variant's time per
-   launch (K2's and K2+K3's also at 1024 and 64), timed in turns with its
+   launch (K2's and K2+K3's also at their path batches), timed in turns with its
    thread-per-env design on the same inputs (warp, thread, thread, warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
@@ -67,6 +68,19 @@ order; any failure exits non-zero and no phase's failure is caught:
      exactly 400 + 1000 K2 launches (the update and its test fleet), the
      reference progress.csv header, finite losses, the update's rollout /
      update / test fleet split
+   - the value-based curricula: Trainer.train from the CLI's parser on the
+     round-5 threshold-sampling run (scripts/round5_runs.sh COMMON +
+     runs/r5_thr150: LargePlank, threshold sampling at scale 150, the
+     grid-mode assist ladder, the pickles; not the heatmap, plot_prob,
+     which needs matplotlib), cut to one
+     update (the uniform round and its test fleet: exactly 1,400 K2
+     launches), then resumed for a second (the value grid's 160 steps of
+     16 envs and the update: exactly 560); the first snapshot's threshold
+     and assist keys, the pickles (one round), the probabilities installed
+     on every env, the grid normalized; the candidate observations and
+     critic values on 16 of the fleet's envs against the CPU; one
+     AdaptiveSampling.pre_update on the card (160 K2 launches) against
+     softmax(-150 grid) computed on the host
    - resume is total on the card: 256 envs x 16 steps, 2 + 2 updates
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
@@ -96,10 +110,13 @@ ROLLOUT_STEPS = 100
 CHECK_BATCHES = (4096, 1000)
 # the round-5 Walker3D run's fleet and test fleet (R5_W3D)
 R5_ENVS, R5_TEST_ENVS = 1024, 64
+# the value grid's eval fleet (steppingstone_tpu_torch/runtime/curriculum.py
+# EVAL_ENVS) and its control steps (EVAL_STEPS)
+GRID_ENVS, GRID_STEPS = 16, 160
 # K2 and K2+K3 are also held to their plain version, and timed, at the
 # batch sizes their round-5 runs give them (both take COMMON's fleet and
-# test fleet, scripts/round5_runs.sh)
-PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS), "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
+# test fleet, scripts/round5_runs.sh; K2 also the value grid's eval fleet)
+PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS, GRID_ENVS), "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
 TRAIN_STEPS = 100
@@ -133,19 +150,31 @@ ROT_PLANK_STEPS = 25
 R5_COMMON = [f"num_processes={R5_ENVS}", "episode_steps=409600", "mini_batch_size=1024",
              f"num_tests={R5_TEST_ENVS}",
              "test_interval=10", "mesh_devices=1", "use_mirror=True", "episode_log=True",
-             "seed=8", "test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
+             "seed=8"]
+R5_HARDEN = ["test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
              "anneal_updates=150", "kl_cutoff=0.12"]
 # the round-5 Walker3D run, runs/r5_w3d (its own line :57-58), cut in depth
 # to UPDATES_FIRST updates then a resume to UPDATES_RESUMED
-R5_W3D = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
-                      "use_curriculum=True", "checkpoint_interval=1"]
+R5_W3D = R5_COMMON + R5_HARDEN + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
+                                  "use_curriculum=True", "checkpoint_interval=1"]
 UPDATES_FIRST, UPDATES_RESUMED = 1, 2
 # the round-5 Mike run, runs/r5_mike_scratch (its own line :92-95), cut in
 # depth to one update: 400 control steps and the test fleet's episode
 # (1000 steps), each one K2 launch
-R5_MIKE = R5_COMMON + ["env_name=MikeStepperEnv-v0", "plank_class=LargePlank",
-                       "use_curriculum=True"]
+R5_MIKE = R5_COMMON + R5_HARDEN + ["env_name=MikeStepperEnv-v0", "plank_class=LargePlank",
+                                   "use_curriculum=True"]
 MIKE_LAUNCHES = 400 + 1000
+# the round-5 value-based run, runs/r5_thr150 (its own line :87-89):
+# threshold sampling at the config's sampling_scale (150) and
+# curriculum_threshold (0.85), the grid-mode assist ladder (assist_bar
+# 700), cut in depth to 1 update then a resume to 2. Update 1 is the
+# uniform round (level 5, no value grid) with the test fleet: 400 + 1000
+# K2 launches; update 2 runs the value grid (160 steps of 16 envs) and its
+# 400 steps: 560. The run's plot_prob=True is cut: the card's machine has
+# no matplotlib (the heatmap is held by the CPU tests)
+R5_THR150 = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
+                         "use_threshold_sampling=True", "save_sampling_prob=True"]
+THR_LAUNCHES = {"first": 400 + 1000, "resumed": 400 + GRID_STEPS}
 PROGRESS_HEADER = ["iter", "total_num_steps", "fps", "entropy", "value_loss", "action_loss",
                    "mean_rew", "median_rew", "min_rew", "max_rew", "test_mean_rew",
                    "test_median_rew", "test_min_rew", "test_max_rew"]
@@ -1114,6 +1143,161 @@ def mike_path() -> dict:
     return out
 
 
+def host_softmax(x):
+    """softmax over a flat array, in float64 on the host."""
+    import numpy as np
+
+    e = np.exp(np.asarray(x, np.float64).reshape(-1) - np.max(x))
+    return (e / e.sum()).reshape(np.shape(x))
+
+
+def threshold_path() -> dict:
+    """Trainer.train on the round-5 threshold-sampling run, from the CLI's
+    parser (R5_THR150): 1 update (the uniform round and the test fleet),
+    then resume=True to 2 (the value grid's 160 steps at 16 envs and the
+    update), each exactly THR_LAUNCHES K2 launches. Checks the first call's
+    snapshot (the threshold's round counter, the assist ladder, level 5
+    installed), the pickles after the resume (one (11, 11) array each, the
+    probabilities summing to 1 and installed on every env, the grid finite
+    and normalized) and progress.csv. Then, outside the
+    counted runs: the candidate observations and the critic ensemble's
+    values on 16 of the fleet's envs on the card against the CPU, and one
+    AdaptiveSampling.pre_update on the card with the trained policy (160
+    K2 launches at 16 envs), its probabilities against softmax(-150 grid)
+    computed on the host."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.envs.stepper import create_temp_states, env_state_from_numpy
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime import curriculum as curr
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    if (curr.EVAL_ENVS, curr.EVAL_STEPS) != (GRID_ENVS, GRID_STEPS):
+        raise AssertionError(f"the value grid runs {curr.EVAL_ENVS} envs x {curr.EVAL_STEPS}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "r5_thr150")
+        ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+        for phase, updates, extra in (("first", 1, []), ("resumed", 2, ["resume=True"])):
+            cfg = parse_cli(R5_THR150 + [f"experiment_dir={exp}"] + extra)
+            cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
+            trainer = Trainer(cfg)
+            torch.cuda.synchronize()
+            step_kernel.CONTROL_STEP.reset_counts()
+            with counting_plain() as plain:
+                t0 = time.perf_counter()
+                policy = trainer.train()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            launches = dict(step_kernel.CONTROL_STEP.launches)
+            check_launches(f"threshold loop ({phase})", launches, "K2", THR_LAUNCHES[phase],
+                           plain[0])
+            snap = ckpt.restore("latest")
+            c, cur = snap["curriculum"], snap["env_state"]["cur"]
+            out[phase] = dict(launches=launches["K2"], start_update=trainer.start_update,
+                              seconds=seconds, update_times=trainer.update_times, curriculum=c)
+            if phase == "first":
+                # post_test turned the uniform rounds off; the ladder holds
+                # the carpet; the uniform round installed level 5 uniformly
+                if (c["thr_uniform_counter"], c["thr_uniform_sampling"], c["assist_level"]) != (
+                        2, False, 0):
+                    raise AssertionError(f"threshold snapshot after update 1: {c}")
+                if not (torch.all(cur["level"] == 5) and not cur["use_prob"].any()
+                        and torch.all(cur["assist"] == 0)):
+                    raise AssertionError("update 1 did not install the uniform round")
+        if out["resumed"]["start_update"] != 1 or out["resumed"]["curriculum"][
+                "thr_uniform_counter"] != 3:
+            raise AssertionError(f"the resumed threshold run: {out['resumed']}")
+        # the value grid's round, logged and installed
+        pkl = {}
+        for what in ("sampling_prob", "value_grid"):
+            with open(os.path.join(exp, f"{cfg.env_name}_{what}.pkl"), "rb") as f:
+                pkl[what] = pickle.load(f)
+            if len(pkl[what]) != 1 or np.shape(pkl[what][0]) != (11, 11):
+                raise AssertionError(f"{what}.pkl holds {[np.shape(x) for x in pkl[what]]}")
+        probs, grid = pkl["sampling_prob"][0], pkl["value_grid"][0]
+        count = trainer.value_grid.last_count
+        # update 2's curriculum hooks: the value grid and installing its
+        # probabilities
+        grid_seconds = trainer.update_times[-1]["curriculum_s"]
+        if not abs(float(probs.sum()) - 1.0) < 1e-5:
+            raise AssertionError(f"the probabilities sum to {probs.sum()}")
+        installed = cur["sample_prob"].numpy()
+        if not (np.abs(installed - probs).max() < 1e-6 and cur["use_prob"].all()):
+            raise AssertionError("the fleet does not sample from the value grid's probabilities")
+        if not np.isfinite(grid).all() or (count > 0 and abs(np.abs(grid).max() - 1.0) > 1e-6):
+            raise AssertionError(f"value grid: count {count}, max |grid| {np.abs(grid).max()}")
+        header, rows = read_progress(os.path.join(exp, "progress.csv"))
+        if header != PROGRESS_HEADER or [r["iter"] for r in rows] != ["1", "2"]:
+            raise AssertionError(f"threshold progress.csv {header}, rows "
+                                 f"{[r['iter'] for r in rows]}")
+        for r in rows:
+            for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
+                if not math.isfinite(float(r[col])):
+                    raise AssertionError(f"threshold progress.csv update {r['iter']}: {col}")
+    out.update(grid_events=count, grid_seconds=grid_seconds,
+               grid_ms_per_step=1e3 * grid_seconds / GRID_STEPS,
+               probs_max=float(probs.max()), probs_min=float(probs.min()),
+               grid_min=float(grid.min()), grid_max=float(grid.max()),
+               progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "mean_rew",
+                                            "test_mean_rew")} for r in rows])
+
+    # card against CPU: candidate observations and critic values on 16 of
+    # the fleet's envs (the snapshot's copy on the host)
+    def first(tree, n):
+        return {k: first(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+    states = {dev: env_state_from_numpy(first(snap["env_state"], GRID_ENVS), dev)
+              for dev in ("cpu", "cuda")}
+    cpu_env = make_env(cfg.env_name, device="cpu", plank_class=cfg.plank_class)
+    temp = {"cuda": create_temp_states(trainer.env.cfg, states["cuda"]),
+            "cpu": create_temp_states(cpu_env.cfg, states["cpu"])}
+    cpu_policy = copy.deepcopy(policy).to("cpu")
+    with torch.no_grad():
+        values = {"cuda": policy.ensemble_values(temp["cuda"]),
+                  "cpu": cpu_policy.ensemble_values(temp["cpu"])}
+    got = dict(max_temp_err=float((temp["cuda"].cpu() - temp["cpu"]).abs().max()),
+               max_value_err=float((values["cuda"].cpu() - values["cpu"]).abs().max()),
+               next_step_index=sorted(set(states["cpu"].next_step_index.tolist())))
+    print("card vs CPU temp states:", json.dumps(got), flush=True)
+    torch.testing.assert_close(temp["cuda"].cpu(), temp["cpu"], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(values["cuda"].cpu(), values["cpu"], rtol=1e-3, atol=1e-3)
+    out["card_vs_cpu"] = got
+
+    # AdaptiveSampling.pre_update on the card, the trained policy and state
+    adaptive = curr.AdaptiveSampling(trainer.venv, trainer.env, scale=float(cfg.sampling_scale),
+                                     value_grid=trainer.value_grid)
+    state = env_state_from_numpy(snap["env_state"], "cuda")
+    torch.cuda.synchronize()
+    step_kernel.CONTROL_STEP.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        state = adaptive.pre_update(state, policy)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(step_kernel.CONTROL_STEP.launches)
+    check_launches("AdaptiveSampling.pre_update", launches, "K2", GRID_STEPS, plain[0])
+    expected = host_softmax(-float(cfg.sampling_scale) * adaptive.last_grid)
+    if not (np.abs(adaptive.last_probs - expected).max() < 1e-6
+            and torch.allclose(state.cur.sample_prob.cpu(),
+                               torch.as_tensor(adaptive.last_probs).expand(R5_ENVS, 11, 11),
+                               rtol=0, atol=1e-6)
+            and state.cur.use_prob.all()):
+        raise AssertionError("AdaptiveSampling's probabilities or their installation differ")
+    out["adaptive"] = dict(launches=launches["K2"], seconds=seconds,
+                           ms_per_step=1e3 * seconds / GRID_STEPS,
+                           events=trainer.value_grid.last_count,
+                           max_prob_err=float(np.abs(adaptive.last_probs - expected).max()))
+    print("K2 path (training loop, round-5 threshold sampling):", json.dumps(out), flush=True)
+    return out
+
+
 def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
     """2 + 2 updates against 4 unbroken (Walker3D, fixed curriculum, no test
     fleet, as tests/test_runtime.py runs it): every progress.csv column but
@@ -1229,13 +1413,17 @@ def main() -> int:
     paths["K2+K4"] = rotated_loop(envs["K2+K4"], "K2+K4", ROT_PLANK_STEPS)
     paths["K2+K3+K4"] = rotated_loop(envs["K2+K3+K4"], "K2+K3+K4", ROT_PLANK_STEPS)
     loop = training_loop_path()
-    paths["K2"] = dict(launches=loop["first"]["launches"] + loop["resumed"]["launches"])
     mike_run = mike_path()
+    thr = threshold_path()
+    paths["K2"] = dict(launches=thr["first"]["launches"] + thr["resumed"]["launches"])
     resume_is_total()
     # a variant's other paths, with their launches
     other_paths = {
-        "K2": {"Walker3D LargePlank train_iteration": walker_plank["launches"],
-               "round-5 Mike Trainer.train": mike_run["launches"]},
+        "K2": {"AdaptiveSampling.pre_update (16 envs)": thr["adaptive"]["launches"],
+               "round-5 Walker3D Trainer.train (fixed curriculum)":
+                   loop["first"]["launches"] + loop["resumed"]["launches"],
+               "round-5 Mike Trainer.train": mike_run["launches"],
+               "Walker3D LargePlank train_iteration": walker_plank["launches"]},
         "K4": {"rotated Walker3D engine.step loop": rotated_walker["launches"]},
     }
 

@@ -191,6 +191,34 @@ def observe_with_terrain(cfg: StepperConfig, state: EnvState, terrain: torch.Ten
     return obs
 
 
+def _repeat(x, k: int):
+    """Each env's row of a (nested) NamedTuple of (B, ...) tensors
+    repeated k times in a row: (B * k, ...)."""
+    if isinstance(x, tuple):
+        return type(x)(*(_repeat(y, k) for y in x))
+    return x.repeat_interleave(k, dim=0)
+
+
+def create_temp_states(cfg: StepperConfig, state: EnvState) -> torch.Tensor:
+    """(B, GRID * GRID, obs_dim) hypothetical observations, one per
+    candidate placement of the next-next stone over the (yaw, pitch) grid:
+    each candidate swapped into a copy of the env's terrain, all B * 121
+    observed in one batch."""
+    B, n = state.terrain.shape[:2]
+    cand_idx = torch.clamp(state.next_step_index + 1, 0, cfg.n_stones - 1)
+    cands = terr.candidate_stones(state.terrain, cand_idx)             # (B, G, 6)
+    G = cands.shape[1]
+    at = (torch.arange(n, device=cand_idx.device) == cand_idx[:, None])[:, None, :, None]
+    terrain = torch.where(at, cands[:, :, None, :], state.terrain[:, None])  # (B, G, n, 6)
+    obs = observe_with_terrain(cfg, _repeat(state, G), terrain.reshape(B * G, n, 6))
+    return obs.reshape(B, G, -1)
+
+
+def get_temp_state(cfg: StepperConfig, state: EnvState) -> torch.Tensor:
+    """The observation of the current terrain, (B, obs_dim)."""
+    return observe(cfg, state)
+
+
 def _mirror_active(cfg: StepperConfig, state: EnvState) -> torch.Tensor:
     """Clocked envs mirror in the second half of the gait cycle; unclocked
     envs in the episodes drawn at reset."""
@@ -212,6 +240,12 @@ def _foot_bodies(model: RobotModel) -> tuple:
 def _foot_xyz(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     """(B, 2, 3) world foot link origins."""
     return km.forward_kinematics(model, q).pos[:, list(_foot_bodies(model))]
+
+
+def _broadcast(value, like: torch.Tensor) -> torch.Tensor:
+    """`value` (a scalar or one per env) as a float32 tensor shaped `like`."""
+    v = torch.as_tensor(value, dtype=torch.float32, device=like.device)
+    return torch.broadcast_to(v, like.shape).clone()
 
 
 def _where(cond: torch.Tensor, a, b):
@@ -301,6 +335,18 @@ class StepperEnv:
     @property
     def action_dim(self) -> int:
         return self.cfg.action_dim
+
+    @property
+    def yaw_samples(self) -> np.ndarray:
+        return terr.YAW_SAMPLES
+
+    @property
+    def pitch_samples(self) -> np.ndarray:
+        return terr.PITCH_SAMPLES
+
+    @property
+    def r_samples(self) -> np.ndarray:
+        return terr.R_SAMPLES
 
     # -- randomness ---------------------------------------------------------
     def draw_reset(self, cur: terr.CurriculumState, generator=None) -> ResetDraws:
@@ -493,6 +539,21 @@ class StepperEnv:
         )
 
     # ---- curriculum and mirror fan-outs ---------------------------------------
+    def set_env_params(self, state: EnvState, params: dict) -> EnvState:
+        """Env-param injection; supported keys: stone_radius (a scalar or
+        one value per env)."""
+        if "stone_radius" in params:
+            state = state._replace(stone_radius=_broadcast(params["stone_radius"],
+                                                           state.stone_radius))
+        return state
+
+    def set_robot_params(self, state: EnvState, params: dict) -> EnvState:
+        """Robot-param injection; supported keys: power (the torque scale,
+        a scalar or one value per env)."""
+        if "power" in params:
+            state = state._replace(robot_power=_broadcast(params["power"], state.robot_power))
+        return state
+
     def set_mirror(self, state: EnvState, enabled: bool) -> EnvState:
         return state._replace(mirror_enabled=torch.full_like(state.mirror_enabled, enabled))
 
@@ -514,6 +575,15 @@ class StepperEnv:
         """Restrict stone sampling to difficulty band k (the specialist
         curriculum): the band's uniform grid distribution, grid mode on."""
         prob = terr.specialist_band_prob(k, state.cur.sample_prob.device)
+        return state._replace(cur=state.cur._replace(
+            sample_prob=prob.expand_as(state.cur.sample_prob).clone(),
+            use_prob=torch.ones_like(state.cur.use_prob)))
+
+    def update_sample_prob(self, state: EnvState, prob) -> EnvState:
+        """Install a (GRID, GRID) grid, or one per env, each normalized by
+        its sum (+1e-12), and sample from it."""
+        prob = torch.as_tensor(prob, dtype=torch.float32, device=state.cur.sample_prob.device)
+        prob = prob / (prob.sum(dim=(-2, -1), keepdim=True) + 1e-12)
         return state._replace(cur=state.cur._replace(
             sample_prob=prob.expand_as(state.cur.sample_prob).clone(),
             use_prob=torch.ones_like(state.cur.use_prob)))

@@ -172,3 +172,16 @@ def resample_stone(terrain: torch.Tensor, index: torch.Tensor, cur: CurriculumSt
     out[rows, torch.clamp(index, 0, n - 1)] = stone
     do = (index >= 2) & (index < n)
     return torch.where(do[:, None, None], out, terrain)
+
+
+def candidate_stones(terrain: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """All GRID * GRID candidate placements of stone `index` (B,) over the
+    (yaw, pitch) grid at mid spacing, flat, relative to the stone before
+    it: the geometry behind `create_temp_states`. (B, GRID * GRID, 6)."""
+    B, n, dev = terrain.shape[0], terrain.shape[1], terrain.device
+    prev = terrain[torch.arange(B, device=dev), torch.clamp(index - 1, 0, n - 1)]
+    yy, pp = torch.meshgrid(torch.as_tensor(YAW_SAMPLES, device=dev),
+                            torch.as_tensor(PITCH_SAMPLES, device=dev), indexing="ij")
+    yaw = yy.reshape(-1).expand(B, -1)
+    flat = torch.zeros_like(yaw)
+    return next_stone(prev[:, None], (R_MIN + R_MAX) * 0.5, yaw, pp.reshape(-1), flat, flat)

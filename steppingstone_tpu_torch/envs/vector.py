@@ -12,7 +12,8 @@ import torch
 
 from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import terrain as terr
-from steppingstone_tpu_torch.envs.stepper import EnvState, EnvStepDraws, ResetDraws, StepperEnv
+from steppingstone_tpu_torch.envs.stepper import (EnvState, EnvStepDraws, ResetDraws, StepperEnv,
+                                                  create_temp_states)
 
 
 class VecEnv:
@@ -41,8 +42,18 @@ class VecEnv:
     def step(self, state: EnvState, actions: torch.Tensor, draws: EnvStepDraws | None = None):
         return self.env.step(state, actions, generator=self.generator, draws=draws)
 
+    def create_temp_states(self, state: EnvState) -> torch.Tensor:
+        """(num_envs, GRID * GRID, obs_dim) candidate observations."""
+        return create_temp_states(self.env.cfg, state)
+
     def set_mirror(self, state: EnvState, enabled: bool) -> EnvState:
         return self.env.set_mirror(state, enabled)
+
+    def set_env_params(self, state: EnvState, params: dict) -> EnvState:
+        return self.env.set_env_params(state, params)
+
+    def set_robot_params(self, state: EnvState, params: dict) -> EnvState:
+        return self.env.set_robot_params(state, params)
 
     def update_curriculum(self, state: EnvState, level, assist=None) -> EnvState:
         return self.env.update_curriculum(state, level, assist)
@@ -52,3 +63,7 @@ class VecEnv:
 
     def update_specialist(self, state: EnvState, k) -> EnvState:
         return self.env.update_specialist(state, k)
+
+    def update_sample_prob(self, state: EnvState, prob) -> EnvState:
+        """prob: one (GRID, GRID) grid, normalized and broadcast to every env."""
+        return self.env.update_sample_prob(state, prob)

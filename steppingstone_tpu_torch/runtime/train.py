@@ -8,13 +8,15 @@ iterations act deterministically and step at 10x lr with their own Adam
 state.
 
 `Trainer.train` is the host loop around it, step for step the JAX
-package's: the LR schedule and warm-up, the fixed curriculum and the
-specialist schedule, the deterministic test fleet every `test_interval`
-updates, `advance_on_test`, the logstd re-inflation and anneal, the NaN
-watchdog, checkpoints (numbered, latest, best) with full resume,
-episodes.csv and progress.csv, and a torch.profiler trace of updates
-10-13. The value-based curricula (adaptive and threshold sampling) are
-ROADMAP item 12 and raise.
+package's: the LR schedule and warm-up, the four curriculum strategies
+(the fixed curriculum, the specialist schedule, and the value-based
+adaptive and threshold sampling with the grid-mode assist ladder and the
+threshold coupling of value-only rounds), the deterministic test fleet
+every `test_interval` updates, `advance_on_test`, the logstd re-inflation
+and anneal, the NaN watchdog, checkpoints (numbered, latest, best) with
+full resume, episodes.csv, progress.csv, the sampling-probability and
+value-grid pickles (and their heatmap), and a torch.profiler trace of
+updates 10-13.
 
 Run:  python -m steppingstone_tpu_torch.runtime.train [with] k=v ...
 (on the card; `main(argv, device="cpu")` runs it on the CPU).
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import math
 import os
+import pickle
 import time
 from typing import NamedTuple
 
@@ -37,6 +40,7 @@ from steppingstone_tpu_torch.agents.ppo import PPOConfig, init_optimizer, ppo_up
 from steppingstone_tpu_torch.agents.rollout import EpisodeStats, collect_rollout, evaluate
 from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import make_env
+from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.vector import VecEnv
 from steppingstone_tpu_torch.runtime import curriculum as curr
 from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
@@ -58,7 +62,8 @@ class Trainer:
     """Wires config -> env fleet (and test fleet) -> networks -> PPO on one
     device (`None` means the card). Its generators: the fleet's (`venv`,
     seeded cfg.seed; env draws and action noise), the test fleet's
-    (cfg.seed + 1) and the minibatch permutations' (cfg.seed)."""
+    (cfg.seed + 1), the minibatch permutations' (cfg.seed) and, with a
+    value-based curriculum, the value grid's eval fleet's (cfg.seed + 2)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
         cfg.validate()
@@ -71,6 +76,9 @@ class Trainer:
         self.venv = VecEnv(self.env, cfg.num_processes, device=self.device, seed=cfg.seed)
         self.test_venv = (VecEnv(self.env, cfg.num_tests, device=self.device, seed=cfg.seed + 1)
                           if cfg.num_tests > 0 else None)
+        # the adaptive and threshold strategies' value grid (one eval fleet)
+        self.value_grid = (curr.make_value_grid_fn(self.env, seed=cfg.seed + 2)
+                           if cfg.use_adaptive_sampling or cfg.use_threshold_sampling else None)
         self.ppo_cfg = PPOConfig(
             clip_param=cfg.clip_param,
             ppo_epoch=cfg.ppo_epoch,
@@ -87,7 +95,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.start_update = 0   # where the last `train` began (after a resume)
-        self.update_times: list = []  # per update: rollout / update / test fleet seconds
+        self.update_times: list = []  # per update: curriculum / rollout / update / test fleet s
 
     def init_params(self, generator: torch.Generator | None = None) -> ActorCritic:
         """A fresh actor-critic (init drawn from `generator`, a CPU
@@ -149,6 +157,8 @@ class Trainer:
         gens = {"venv": self.venv.generator, "trainer": self.generator}
         if self.test_venv is not None:
             gens["test_venv"] = self.test_venv.generator
+        if self.value_grid is not None:
+            gens["value_grid"] = self.value_grid.venv.generator
         return gens
 
     def _sync(self) -> None:
@@ -163,16 +173,14 @@ class Trainer:
     def train(self) -> ActorCritic:
         """The training run `cfg` describes; returns the trained policy."""
         cfg = self.cfg
-        if cfg.use_adaptive_sampling or cfg.use_threshold_sampling:
-            raise NotImplementedError(
-                "adaptive and threshold sampling (the value-based curricula) are not "
-                "ported yet: ROADMAP item 12")
         exp_dir = init_experiment(cfg)
         # the replicate offset moved cfg.seed: every generator starts from it
         self.venv.generator.manual_seed(cfg.seed)
         self.generator.manual_seed(cfg.seed)
         if self.test_venv is not None:
             self.test_venv.generator.manual_seed(cfg.seed + 1)
+        if self.value_grid is not None:
+            self.value_grid.venv.generator.manual_seed(cfg.seed + 2)
 
         policy = self.init_params()
         opt_state = init_optimizer(policy)
@@ -196,13 +204,34 @@ class Trainer:
         if fixed:
             print("curriculum", fixed.level, flush=True)
             env_state = fixed.install(env_state)
+        # grid-mode assist ladder: threshold and adaptive runs ramp the
+        # support geometry carpet -> calibrated without touching the
+        # sampling distribution
+        assist = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
+                                       assist_only=True, bar=cfg.assist_bar)
+                  if cfg.grid_assist and self.value_grid is not None else None)
+        if assist:
+            env_state = assist.install(env_state)
         specialist = curr.SpecialistSchedule(self.venv) if cfg.use_specialist else None
         if specialist:
             env_state = specialist.install(env_state)
+        adaptive = (curr.AdaptiveSampling(self.venv, self.env, scale=float(cfg.sampling_scale),
+                                          value_grid=self.value_grid)
+                    if cfg.use_adaptive_sampling else None)
+        threshold = (curr.ThresholdSampling(self.venv, self.env,
+                                            threshold=cfg.curriculum_threshold,
+                                            scale=float(cfg.sampling_scale),
+                                            value_grid=self.value_grid)
+                     if cfg.use_threshold_sampling else None)
 
         ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
         logger = ConsoleCSVLogger(exp_dir, console_log_interval=cfg.log_interval,
                                   resume=cfg.resume)
+        # the value-based strategies' grids, from this call's updates only
+        # (the JAX package's behaviour: a resumed run's pickles hold the
+        # rounds after the resume)
+        sampling_prob_log = []
+        value_grid_log = []
 
         start = time.time()
         next_checkpoint = cfg.save_every
@@ -210,6 +239,7 @@ class Trainer:
         test_rets = np.zeros(0)
         start_update = 0
         anneal_start = -1  # update where the logstd anneal began (-1: not yet)
+        first_sampling = cfg.first_sampling  # reference train.py:125
 
         # ---- full-resume snapshot: params, both optimizers, env and test
         # fleet state, episode stats, every generator, the curricula and
@@ -229,18 +259,16 @@ class Trainer:
                 "frames": frames,
                 "max_ep_reward": max(max_ep_reward, -1e30),
                 "test_rets": torch.as_tensor(tr),
-                # the value-based curricula's keys (ROADMAP item 12) keep
-                # their "absent" values, so the layout stays when they come
                 "curriculum": {
                     "fixed_level": fixed.level if fixed else -1,
                     "fixed_frac": fixed.frac if fixed else -1.0,
-                    "assist_level": -1,
-                    "assist_frac": -1.0,
+                    "assist_level": assist.level if assist else -1,
+                    "assist_frac": assist.frac if assist else -1.0,
                     "specialist": specialist.specialist if specialist else -1,
-                    "thr_uniform_counter": -1,
-                    "thr_uniform_sampling": False,
+                    "thr_uniform_counter": threshold.uniform_counter if threshold else -1,
+                    "thr_uniform_sampling": bool(threshold.uniform_sampling) if threshold else False,
                     "anneal_start": anneal_start,
-                    "first_sampling": bool(cfg.first_sampling),
+                    "first_sampling": bool(first_sampling),
                 },
             }
             if self.test_venv is not None:
@@ -266,9 +294,17 @@ class Trainer:
                 fixed.level = int(c["fixed_level"])
                 fixed.frac = float(c["fixed_frac"])
                 env_state = fixed.install(env_state)
+            if assist and int(c["assist_level"]) >= 0:
+                assist.level = int(c["assist_level"])
+                assist.frac = float(c["assist_frac"])
+                env_state = assist.install(env_state)
             anneal_start = int(c["anneal_start"])
+            first_sampling = bool(c["first_sampling"])
             if specialist:
                 specialist.specialist = int(c["specialist"])
+            if threshold:
+                threshold.uniform_counter = int(c["thr_uniform_counter"])
+                threshold.uniform_sampling = bool(c["thr_uniform_sampling"])
             next_checkpoint = ((int(snap["frames"]) // int(cfg.save_every)) + 1) * cfg.save_every
             print(f"resumed from update {start_update}", flush=True)
         self.start_update = start_update
@@ -301,13 +337,41 @@ class Trainer:
                 lr = lr * min(1.0, (j + 1) / cfg.lr_warmup_updates)
 
             # ---- curriculum pre-hooks -------------------------------------
+            t_pre = time.perf_counter()
             if fixed:
                 env_state = fixed.tick(env_state)
+            if assist:
+                env_state = assist.tick(env_state)
             # reference alternation: `update_values` every other update
             value_only = cfg.use_value_update and j % 2 == 1
+            # reference threshold coupling (`train.py:224-228`): value-only
+            # rounds collect at uniform full range; the first non-value
+            # sampling round restricts to specialist band 0
+            if value_only and threshold:
+                env_state = self.venv.update_curriculum(env_state, terr.N_LEVELS - 1,
+                                                        assist=assist.frac if assist else None)
+            elif not value_only and threshold and first_sampling:
+                env_state = self.venv.update_specialist(env_state, 0)
+                first_sampling = False
+            if threshold:
+                env_state = threshold.pre_update(env_state, policy,
+                                                 assist=assist.frac if assist else None)
+                if threshold.last_probs is not None and cfg.save_sampling_prob:
+                    sampling_prob_log.append(threshold.last_probs)
+                    value_grid_log.append(threshold.last_grid)
+            if adaptive:
+                env_state = adaptive.pre_update(env_state, policy)
+                if adaptive.last_probs is not None and cfg.save_sampling_prob:
+                    sampling_prob_log.append(adaptive.last_probs)
+                    value_grid_log.append(adaptive.last_grid)
             # mirror the current level onto the deterministic test fleet
             if cfg.test_curriculum and self.test_venv is not None and fixed:
                 test_state = self.test_venv.update_curriculum(test_state, fixed.frac)
+            # grid-mode runs: mirror the assist onto the test fleet (level
+            # stays 0, uniform), which the assist ladder gates on below
+            if assist and self.test_venv is not None:
+                test_state = self.test_venv.update_assist(test_state, assist.frac)
+            self._sync()
 
             # ---- the update -----------------------------------------------
             t0 = time.perf_counter()
@@ -344,6 +408,8 @@ class Trainer:
                 tvalid = test_stats.valid.cpu().numpy()
                 test_rets = test_stats.ret.cpu().numpy()[tvalid]
                 test_fresh = True
+            if threshold:
+                threshold.post_test()
             t3 = time.perf_counter()
 
             # ---- episode stats to host ---------------------------------
@@ -364,6 +430,19 @@ class Trainer:
                 if advanced and cfg.advance_logstd != 0.0:
                     # restore exploration for the harder level
                     reinflate_logstd(policy, cfg.advance_logstd)
+            # the assist ladder advances on the deterministic test mean when
+            # a test fleet exists: frontier-targeting sampling holds the
+            # stochastic training mean low by design
+            if assist:
+                if cfg.num_tests > 0:
+                    a_metric = (float(test_rets.mean()) if test_fresh and test_rets.size
+                                else None)
+                else:
+                    a_metric = mean_rew if rets.size else None
+                if a_metric is not None:
+                    env_state, a_adv = assist.post_update(env_state, a_metric)
+                    if a_adv and cfg.advance_logstd != 0.0:
+                        reinflate_logstd(policy, cfg.advance_logstd)
 
             # ---- late-run exploration anneal (networks.cap_logstd) ----------
             if cfg.anneal_updates > 0:
@@ -410,6 +489,18 @@ class Trainer:
             if is_best:
                 ckpt.save("best", snap)
 
+            if cfg.save_sampling_prob and sampling_prob_log:
+                with open(os.path.join(exp_dir, f"{cfg.env_name}_sampling_prob.pkl"), "wb") as fp:
+                    pickle.dump(sampling_prob_log, fp)
+                with open(os.path.join(exp_dir, f"{cfg.env_name}_value_grid.pkl"), "wb") as fp:
+                    pickle.dump(value_grid_log, fp)
+            # the sampling-probability heatmap (headless analog of the
+            # reference's live `plot_prob` window)
+            if cfg.plot_prob and sampling_prob_log:
+                from steppingstone_tpu_torch.viz.sampling_prob import render_grid
+
+                render_grid(sampling_prob_log[-1], os.path.join(exp_dir, "sampling_prob.png"))
+
             # ---- logging (reference train.py:564-578) -----------------------
             if rets.size > 1:
                 elapsed = time.time() - start
@@ -428,8 +519,8 @@ class Trainer:
                         if test_fresh or cfg.test_interval == 1 else None
                     },
                 })
-            self.update_times.append(dict(update=j + 1, rollout_s=t1 - t0, update_s=t2 - t1,
-                                          test_s=t3 - t2))
+            self.update_times.append(dict(update=j + 1, curriculum_s=t0 - t_pre,
+                                          rollout_s=t1 - t0, update_s=t2 - t1, test_s=t3 - t2))
 
         if prof is not None:
             prof.stop()

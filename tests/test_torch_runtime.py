@@ -13,6 +13,7 @@ rel 1e-5 / abs 1e-6 (every column but fps)."""
 import dataclasses
 import json
 import os
+import pickle
 from typing import Any, NamedTuple
 
 import jax
@@ -237,10 +238,13 @@ def test_checkpoint_round_trip(tmp_path):
 
 def _train(tmp_path, name, args, max_episode_steps):
     """Trainer(cfg, device="cpu").train() with short episodes (the test
-    fleet evaluates one episode length per test), returning the trainer."""
+    fleet evaluates one episode length per test) and, for the value-based
+    curricula, a value grid of 4 envs x 24 steps, returning the trainer."""
     cfg = tconfig.parse_cli(args + [f"experiment_dir={tmp_path / name}"])
     trainer = Trainer(cfg, device="cpu")
     trainer.env.cfg = dataclasses.replace(trainer.env.cfg, max_episode_steps=max_episode_steps)
+    if trainer.value_grid is not None:
+        trainer.value_grid = tcurr.make_value_grid_fn(trainer.env, max_steps=24, n_envs=4)
     trainer.train()
     return trainer
 
@@ -272,19 +276,37 @@ def test_tiny_training_run(tmp_path, capsys):
     assert "Updates 2, num timesteps 256" in capsys.readouterr().out
 
 
-def test_resume_is_total(tmp_path):
+# the curriculum of each resume case: the fixed curriculum advancing with
+# a 2-update ramp, or threshold sampling (a uniform round, then value
+# grids) with the assist ladder advancing on the test fleet, a 3-update
+# ramp in flight across the resume
+RESUME_CASES = {
+    "fixed": ["use_curriculum=True", "curriculum_bar=-1000", "level_ramp_updates=2"],
+    "threshold": ["use_threshold_sampling=True", "save_sampling_prob=True",
+                  "assist_bar=-1000", "level_ramp_updates=3"],
+}
+
+
+@pytest.mark.parametrize("case", list(RESUME_CASES))
+def test_resume_is_total(tmp_path, case):
     """2 updates + a resume for 2 more == one unbroken 4-update run: every
-    progress.csv column but fps, with the fixed curriculum advancing (a
-    ramp in flight across the resume) and a test fleet every 3 updates."""
+    progress.csv column but fps, with the curriculum advancing (a ramp in
+    flight across the resume) and a test fleet every 3 updates. Threshold
+    sampling also restores its round counter and the value grid's
+    generator; its pickles, rewritten by each call, hold the resumed call's
+    rounds only (as the JAX package's do)."""
     base = ["env_name=Walker3DStepperEnv-v0", "num_processes=8", "episode_steps=64",
             "mini_batch_size=32", "ppo_epoch=2", "num_tests=2", "test_interval=3",
-            "use_curriculum=True", "curriculum_bar=-1000", "level_ramp_updates=2", "seed=3",
-            "checkpoint_interval=1"]
+            *RESUME_CASES[case], "seed=3", "checkpoint_interval=1"]
     _train(tmp_path, "a", base + ["num_frames=256"], max_episode_steps=12)
     _train(tmp_path, "b", base + ["num_frames=128"], max_episode_steps=12)
     resumed = _train(tmp_path, "b", base + ["num_frames=256", "resume=True"],
                      max_episode_steps=12)
     assert resumed.start_update == 2
+    # the curricula's state at the end: the resumed run restored it whole
+    latest = [tckpt.CheckpointManager(str(tmp_path / run / "checkpoints")).restore("latest")
+              for run in ("a", "b")]
+    assert latest[1]["curriculum"] == latest[0]["curriculum"]
     header, rows_a = _progress(tmp_path / "a" / "progress.csv")
     _, rows_b = _progress(tmp_path / "b" / "progress.csv")
     assert sorted(rows_a) == sorted(rows_b) == [2, 3, 4]
@@ -298,13 +320,15 @@ def test_resume_is_total(tmp_path):
                 assert a == b, (it, col)
                 continue
             assert float(a) == pytest.approx(float(b), rel=1e-5, abs=1e-6), (it, col)
+    if case == "threshold":
+        def grids(run, what):
+            with open(tmp_path / run / f"Walker3DStepperEnv-v0_{what}.pkl", "rb") as f:
+                return pickle.load(f)
 
-
-@pytest.mark.parametrize("key", ["use_adaptive_sampling", "use_threshold_sampling"])
-def test_train_refuses_value_based_curricula(tmp_path, key):
-    cfg = tconfig.TrainConfig(env_name="Walker3DStepperEnv-v0", num_processes=4,
-                              episode_steps=8, num_frames=8, num_tests=0,
-                              experiment_dir=str(tmp_path / "run"), **{key: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Trainer(cfg, device="cpu").train()
-    assert not (tmp_path / "run").exists()
+        for what in ("sampling_prob", "value_grid"):
+            unbroken, after_resume = grids("a", what), grids("b", what)
+            # rounds 2-4 are value-grid rounds; the resumed call logged 3 and 4
+            assert len(unbroken) == 3 and len(after_resume) == 2
+            assert np.abs(np.stack(unbroken)).max() > 0  # the grids scored hit events
+            np.testing.assert_allclose(np.stack(after_resume), np.stack(unbroken[1:]),
+                                       rtol=1e-5, atol=1e-6)

@@ -3,9 +3,10 @@ JAX, its entry points default to the card, the control-step wrapper
 refuses what the kernels cannot take and broadcasts unbatched operands,
 and the sources are where the builds expect them. The card-only tests
 hold the eight control-step variants (K1..K4 and their combinations)
-against their plain version and skip on a host without a GPU (run them on
-the card with `python3 -m pytest --noconftest tests/test_torch_structure.py`);
-all eight are control_step_warp<PD, PLANK, ROT>, a warp per env."""
+against their plain version, and the value grid's eval fleet on K2, and
+skip on a host without a GPU (run them on the card with
+`python3 -m pytest --noconftest tests/test_torch_structure.py`); all eight
+are control_step_warp<PD, PLANK, ROT>, a warp per env."""
 
 import ast
 import dataclasses
@@ -51,7 +52,8 @@ def test_port_imports_no_jax():
     for module in ("physics/robots/cassie.py", "agents/gae.py", "agents/mirror.py",
                    "agents/ppo.py", "runtime/config.py", "runtime/train.py",
                    "physics/urdf.py", "physics/mjcf_export.py", "runtime/checkpoint.py",
-                   "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py"):
+                   "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py",
+                   "viz/sampling_prob.py"):
         assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
@@ -297,6 +299,49 @@ def test_warp_design_matches_plain_on_the_card(card, variant, batch):
     before = step_kernel.CONTROL_STEP.launches[thread]
     _check_variant_on_the_card(variant, batch)
     assert step_kernel.CONTROL_STEP.launches[thread] == before
+
+
+def _to(x, device):
+    """A tensor, or a (nested) NamedTuple of them, moved to `device`."""
+    if isinstance(x, tuple):
+        return type(x)(*(_to(y, device) for y in x))
+    return x.to(device)
+
+
+@pytest.mark.card
+def test_value_grid_runs_k2_on_the_card(card):
+    """The value grid's eval fleet (16 envs, Walker3D on LargePlank) steps
+    through K2 on the card, one launch a step; its candidate observations
+    and critic values on the fleet's last state equal the CPU's on the same
+    state (1e-3)."""
+    from steppingstone_tpu_torch.agents.networks import ActorCritic
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.envs.stepper import create_temp_states
+    from steppingstone_tpu_torch.runtime.curriculum import EVAL_ENVS, make_value_grid_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = make_env("Walker3DStepperEnv-v0", plank_class="LargePlank")
+    policy = ActorCritic(60, 21, 2, generator=torch.Generator().manual_seed(0))
+    fn = make_value_grid_fn(env, max_steps=20)
+    before = dict(step_kernel.CONTROL_STEP.launches)
+    grid, count = fn(policy)
+    after = step_kernel.CONTROL_STEP.launches
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"K2": 20}
+    assert fn.venv.num_envs == EVAL_ENVS and grid.shape == (11, 11)
+    assert torch.isfinite(grid).all()
+    assert float(grid.abs().max()) == pytest.approx(1.0 if int(count) else 0.0, abs=1e-6)
+    state, obs = fn.venv.reset()
+    for _ in range(5):
+        state, out = fn.venv.step(state, policy.action_mean(obs).detach())
+        obs = out.obs
+    temp = fn.venv.create_temp_states(state)
+    cpu_env = make_env("Walker3DStepperEnv-v0", device="cpu", plank_class="LargePlank")
+    temp_cpu = create_temp_states(cpu_env.cfg, _to(state, "cpu"))
+    torch.testing.assert_close(temp.cpu(), temp_cpu, rtol=1e-3, atol=1e-3)
+    with torch.no_grad():
+        values = policy.ensemble_values(temp).cpu()
+        values_cpu = policy.to("cpu").ensemble_values(temp_cpu)
+    torch.testing.assert_close(values, values_cpu, rtol=1e-3, atol=1e-3)
 
 
 def _check_variant_on_the_card(variant, batch=1000):
