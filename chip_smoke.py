@@ -26,8 +26,12 @@ order; any failure exits non-zero and no phase's failure is caught:
    Cassie stable PD over planks, and the K4 variants on the same four
    with fixed joint rotations drawn from a seed (the repo holds no
    full-width URDF robot); K2 also on Mike's states at 1024 and 64 (its
-   round-5 run's fleet and test fleet); then each variant's time per
-   launch (K2's and K2+K3's also at their path batches), timed in turns with its
+   round-5 run's fleet and test fleet); K1 and K2 also at B=1 (enjoy's
+   single env: one block, one live warp behind the tail guard), on the
+   first of the 4096 envs whose step engages a contact on a stone, a joint
+   limit and (K2) plank-only support; then each variant's time per
+   launch (K2's and K2+K3's also at their path batches, K1's and K2's at
+   B=1), timed in turns with its
    thread-per-env design on the same inputs (warp, thread, thread, warp)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
@@ -81,6 +85,22 @@ order; any failure exits non-zero and no phase's failure is caught:
      critic values on 16 of the fleet's envs against the CPU; one
      AdaptiveSampling.pre_update on the card (160 K2 launches) against
      softmax(-150 grid) computed on the host
+   - warm starts: Trainer.train from the CLI's parser on the round-5
+     specialist run (scripts/round5_runs.sh COMMON + runs/r5_specialist:
+     LargePlank, the specialist schedule, warm_start_logstd -2.0,
+     kl_cutoff 0.12, lr_warmup_updates 20), warm-started from the round-5
+     Walker3D loop's checkpoints/best above and cut to one update: the
+     warm start equals the checkpoint but for logstd (all -2.0), exactly
+     400 + 1000 K2 launches, the reference progress.csv, finite losses,
+     the update's split (this slice's K2 path)
+   - inference: enjoy.main on the card (a) on LargePlank from the
+     specialist run's checkpoints/latest with --plot-value --dump, one K2
+     launch per step of the episode, the dump with the JAX dump's keys,
+     shapes and dtypes; (b) the same policy pickled in the reference's
+     layout, loaded equal to it and run on discs, one K1 launch per step;
+     then enjoy.run_episode on the card against the CPU from the same
+     draws (frames, rewards, actions, values, value grids 1e-3; contacts,
+     hits, steps equal)
    - resume is total on the card: 256 envs x 16 steps, 2 + 2 updates
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
@@ -175,6 +195,22 @@ MIKE_LAUNCHES = 400 + 1000
 R5_THR150 = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
                          "use_threshold_sampling=True", "save_sampling_prob=True"]
 THR_LAUNCHES = {"first": 400 + 1000, "resumed": 400 + GRID_STEPS}
+# the round-5 specialist run, runs/r5_specialist (its own line :117-122):
+# the specialist schedule warm-started from the round-5 Walker3D run's
+# checkpoints/best (here the cut loop's above) with its logstd reset to
+# -2.0, cut in depth to one update: 400 K2 launches and the test fleet's
+# episode (1000)
+R5_SPECIALIST = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
+                             "use_specialist=True", "warm_start_logstd=-2.0", "kl_cutoff=0.12",
+                             "lr_warmup_updates=20"]
+SPECIALIST_LAUNCHES = 400 + 1000
+# enjoy's episodes end where the policy falls, at most ENJOY_STEPS steps;
+# the card against the CPU over CARD_CPU_EPISODE_STEPS at most
+ENJOY_STEPS = 1000
+CARD_CPU_EPISODE_STEPS = 30
+# K1 and K2 are also held to their plain version, and timed, at enjoy's
+# single env
+ONE_ENV = ("K1", "K2")
 PROGRESS_HEADER = ["iter", "total_num_steps", "fps", "entropy", "value_loss", "action_loss",
                    "mean_rew", "median_rew", "min_rew", "max_rew", "test_mean_rew",
                    "test_median_rew", "test_min_rew", "test_max_rew"]
@@ -397,9 +433,9 @@ def plain_version(model, args, kw, substeps=None):
                              substeps=engine.SUBSTEPS if substeps is None else substeps)
 
 
-def plank_only_fraction(env, args, kw) -> float:
-    """Share of contact spheres that a plank supports and a disc of the same
-    radius would not (stones only, no ground)."""
+def plank_only_spheres(env, args, kw):
+    """(B, NC) bool: the contact spheres that a plank supports and a disc of
+    the same radius would not (stones only, no ground)."""
     import torch
 
     from steppingstone_tpu_torch.physics import contact as ct
@@ -413,7 +449,41 @@ def plank_only_fraction(env, args, kw) -> float:
             torch.zeros_like(args[5]), env.cfg.contact)
     plank = ct.compute_contacts(pts, *rest, support_hy=kw["support_hy"])
     disc = ct.compute_contacts(pts, *rest)
-    return float(((plank.stone_index >= 0) & (disc.stone_index < 0)).float().mean())
+    return (plank.stone_index >= 0) & (disc.stone_index < 0)
+
+
+def plank_only_fraction(env, args, kw) -> float:
+    """Share of contact spheres that a plank supports and a disc of the same
+    radius would not."""
+    return float(plank_only_spheres(env, args, kw).float().mean())
+
+
+def check_one_env(env, variant: str, args, kw):
+    """The variant at B=1 (enjoy's single env: one block, one live warp
+    behind the tail guard) against its plain version (compare_step), on the
+    first env of a larger batch of inputs whose step engages a contact on a
+    stone, a joint limit and (planks) plank-only support. Returns
+    (metrics, the one env's inputs)."""
+    import torch
+
+    _, ref = plain_version(env.cfg.model, args, kw)
+    engaged = (ref.foot_contact.any(dim=1) & (ref.foot_stone >= 0).any(dim=1)
+               & ref.joint_at_limit.any(dim=1))
+    if "support_hy" in kw:
+        engaged &= plank_only_spheres(env, args, kw).any(dim=1)
+    rows = torch.nonzero(engaged)[:, 0]
+    if not len(rows):
+        raise AssertionError(f"{variant}: no env of {args[0].shape[0]} engages everything")
+    i = int(rows[0])
+    one = tuple(a[i:i + 1].contiguous() for a in args)
+    one_kw = {k: v[i:i + 1].contiguous() if torch.is_tensor(v) else v for k, v in kw.items()}
+    extra = {"plank_only_fraction": plank_only_fraction(env, one, one_kw)} if "support_hy" in kw else {}
+    got = compare_step(env.cfg.model, f"{variant} (one env)", one, one_kw, variant=variant,
+                       robot=env.cfg.model.name, env_index=i, **extra)
+    if not (got["contact_fraction"] > 0 and got["on_stone_fraction"] > 0
+            and got["at_limit_fraction"] > 0 and got.get("plank_only_fraction", 1) > 0):
+        raise AssertionError(f"{variant}: the one env engages less than chosen: {got}")
+    return got, (one, one_kw)
 
 
 # A joint limit switches a stiff spring on (engine.LIMIT_K) where the input
@@ -1003,8 +1073,9 @@ def read_progress(path: str):
     return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
 
 
-def training_loop_path() -> dict:
-    """Trainer.train on the round-5 Walker3D run, from the CLI's parser:
+def training_loop_path(runs: str) -> dict:
+    """Trainer.train on the round-5 Walker3D run, from the CLI's parser, in
+    `runs`/r5_w3d (left in place for the specialist run's warm start):
     UPDATES_FIRST updates, then resume=True to UPDATES_RESUMED, each update
     400 K2 launches and the test fleet (at update 0) one K2 launch per step
     of an episode length."""
@@ -1016,75 +1087,74 @@ def training_loop_path() -> dict:
     from steppingstone_tpu_torch.runtime.train import Trainer
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        exp = os.path.join(tmp, "r5_w3d")
-        for phase, updates, extra in (("first", UPDATES_FIRST, []),
-                                      ("resumed", UPDATES_RESUMED, ["resume=True"])):
-            cfg = parse_cli(R5_W3D + [f"experiment_dir={exp}"] + extra)
-            cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
-            trainer = Trainer(cfg)
+    exp = os.path.join(runs, "r5_w3d")
+    for phase, updates, extra in (("first", UPDATES_FIRST, []),
+                                  ("resumed", UPDATES_RESUMED, ["resume=True"])):
+        cfg = parse_cli(R5_W3D + [f"experiment_dir={exp}"] + extra)
+        cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
+        trainer = Trainer(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            trainer.train()
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            step_kernel.CONTROL_STEP.reset_counts()
-            with counting_plain() as plain:
-                t0 = time.perf_counter()
-                trainer.train()
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-            launches = dict(step_kernel.CONTROL_STEP.launches)
-            ran = range(trainer.start_update, cfg.num_updates)
-            tests = sum(1 for j in ran if j % cfg.test_interval == 0)
-            steps = len(ran) * cfg.num_steps + tests * trainer.env.cfg.max_episode_steps
-            check_launches(f"training loop ({phase})", launches, "K2", steps, plain[0])
-            out[phase] = dict(
-                launches=launches["K2"], control_steps=steps, start_update=trainer.start_update,
-                seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                update_times=trainer.update_times)
-            if phase == "first":
-                ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
-                before = ckpt.restore("latest")
-        if out["resumed"]["start_update"] != UPDATES_FIRST:
-            raise AssertionError(f"the resumed run started at update "
-                                 f"{out['resumed']['start_update']}")
-        # artifacts, progress.csv, finite losses
-        for name in ("configs.json", "run.json", "episodes.csv", "checkpoints/latest.pt",
-                     "checkpoints/best.pt"):
-            if not os.path.exists(os.path.join(exp, name)):
-                raise AssertionError(f"training loop: {name} is missing")
-        header, rows = read_progress(os.path.join(exp, "progress.csv"))
-        if header != PROGRESS_HEADER:
-            raise AssertionError(f"progress.csv header {header}")
-        if [int(r["iter"]) for r in rows] != list(range(1, UPDATES_RESUMED + 1)):
-            raise AssertionError(f"progress.csv rows for updates {[r['iter'] for r in rows]}")
-        for r in rows:
-            for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
-                if not math.isfinite(float(r[col])):
-                    raise AssertionError(f"progress.csv update {r['iter']}: {col} = {r[col]}")
-        if rows[0]["test_mean_rew"] == "" or rows[1]["test_mean_rew"] != "":
-            raise AssertionError("test columns: fresh at update 1, blank at update 2 expected")
-        # the resumed run restored the counter and the curriculum state and
-        # carried them into its own checkpoint
-        ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
-        t0 = time.perf_counter()
-        after = ckpt.restore("latest")
-        restore_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ckpt.save("smoke_copy", after)
-        save_s = time.perf_counter() - t0
-        if (before["update"], after["update"]) != (UPDATES_FIRST, UPDATES_RESUMED):
-            raise AssertionError(f"checkpoint updates {before['update']} -> {after['update']}")
-        cur = {k: after["curriculum"][k] for k in ("fixed_level", "fixed_frac", "anneal_start")}
-        if cur != {k: before["curriculum"][k] for k in cur}:
-            raise AssertionError(f"curriculum {before['curriculum']} -> {after['curriculum']}")
-        level = after["env_state"]["cur"]["level"]
-        if not torch.all(level == after["curriculum"]["fixed_frac"]):
-            raise AssertionError("the installed level differs from the curriculum's")
-        out.update(
-            progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "action_loss", "mean_rew",
-                                         "test_mean_rew")} for r in rows],
-            checkpoint_bytes=os.path.getsize(ckpt.path("latest")),
-            checkpoint_save_s=save_s, checkpoint_restore_s=restore_s,
-            curriculum=after["curriculum"])
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        ran = range(trainer.start_update, cfg.num_updates)
+        tests = sum(1 for j in ran if j % cfg.test_interval == 0)
+        steps = len(ran) * cfg.num_steps + tests * trainer.env.cfg.max_episode_steps
+        check_launches(f"training loop ({phase})", launches, "K2", steps, plain[0])
+        out[phase] = dict(
+            launches=launches["K2"], control_steps=steps, start_update=trainer.start_update,
+            seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            update_times=trainer.update_times)
+        if phase == "first":
+            ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+            before = ckpt.restore("latest")
+    if out["resumed"]["start_update"] != UPDATES_FIRST:
+        raise AssertionError(f"the resumed run started at update "
+                             f"{out['resumed']['start_update']}")
+    # artifacts, progress.csv, finite losses
+    for name in ("configs.json", "run.json", "episodes.csv", "checkpoints/latest.pt",
+                 "checkpoints/best.pt"):
+        if not os.path.exists(os.path.join(exp, name)):
+            raise AssertionError(f"training loop: {name} is missing")
+    header, rows = read_progress(os.path.join(exp, "progress.csv"))
+    if header != PROGRESS_HEADER:
+        raise AssertionError(f"progress.csv header {header}")
+    if [int(r["iter"]) for r in rows] != list(range(1, UPDATES_RESUMED + 1)):
+        raise AssertionError(f"progress.csv rows for updates {[r['iter'] for r in rows]}")
+    for r in rows:
+        for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
+            if not math.isfinite(float(r[col])):
+                raise AssertionError(f"progress.csv update {r['iter']}: {col} = {r[col]}")
+    if rows[0]["test_mean_rew"] == "" or rows[1]["test_mean_rew"] != "":
+        raise AssertionError("test columns: fresh at update 1, blank at update 2 expected")
+    # the resumed run restored the counter and the curriculum state and
+    # carried them into its own checkpoint
+    ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+    t0 = time.perf_counter()
+    after = ckpt.restore("latest")
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save("smoke_copy", after)
+    save_s = time.perf_counter() - t0
+    if (before["update"], after["update"]) != (UPDATES_FIRST, UPDATES_RESUMED):
+        raise AssertionError(f"checkpoint updates {before['update']} -> {after['update']}")
+    cur = {k: after["curriculum"][k] for k in ("fixed_level", "fixed_frac", "anneal_start")}
+    if cur != {k: before["curriculum"][k] for k in cur}:
+        raise AssertionError(f"curriculum {before['curriculum']} -> {after['curriculum']}")
+    level = after["env_state"]["cur"]["level"]
+    if not torch.all(level == after["curriculum"]["fixed_frac"]):
+        raise AssertionError("the installed level differs from the curriculum's")
+    out.update(
+        progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "action_loss", "mean_rew",
+                                     "test_mean_rew")} for r in rows],
+        checkpoint_bytes=os.path.getsize(ckpt.path("latest")),
+        checkpoint_save_s=save_s, checkpoint_restore_s=restore_s,
+        curriculum=after["curriculum"])
     print("K2 path (training loop, round-5 Walker3D):", json.dumps(out), flush=True)
     return out
 
@@ -1298,6 +1368,208 @@ def threshold_path() -> dict:
     return out
 
 
+def specialist_path(runs: str, w3d_exp: str) -> dict:
+    """Trainer.train on the round-5 specialist run, from the CLI's parser,
+    warm-started from the round-5 Walker3D loop's checkpoints/best (its
+    latest where the cut loop wrote no best) and cut to one update: the
+    policy after init_params is the checkpoint's exactly but for logstd,
+    all -2.0; exactly SPECIALIST_LAUNCHES K2 launches and nothing else;
+    progress.csv with the reference header and finite losses; the update's
+    split."""
+    import torch
+
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    source = CheckpointManager(os.path.join(w3d_exp, "checkpoints"))
+    tag = "best" if source.exists("best") else "latest"
+    net = os.path.join(source.directory, tag)
+    exp = os.path.join(runs, "r5_specialist")
+    cfg = parse_cli(R5_SPECIALIST + [f"net={net}", f"experiment_dir={exp}"])
+    cfg = parse_cli([f"num_frames={cfg.episode_steps}"], base=cfg)
+    trainer = Trainer(cfg)
+    weights = source.restore(tag)["policy"]
+    warm = trainer.init_params().state_dict()
+    if warm.keys() != weights.keys() or not all(
+            torch.equal(warm[k].cpu(), weights[k]) for k in weights if k != "logstd"):
+        raise AssertionError(f"the warm start differs from {net}")
+    if not torch.equal(warm["logstd"].cpu(), torch.full_like(weights["logstd"], -2.0)):
+        raise AssertionError(f"warm-start logstd {warm['logstd'].tolist()}")
+    torch.cuda.synchronize()
+    step_kernel.CONTROL_STEP.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(step_kernel.CONTROL_STEP.launches)
+    check_launches("specialist loop", launches, "K2", SPECIALIST_LAUNCHES, plain[0])
+    header, rows = read_progress(os.path.join(exp, "progress.csv"))
+    if header != PROGRESS_HEADER or [r["iter"] for r in rows] != ["1"]:
+        raise AssertionError(f"specialist progress.csv {header}, rows {[r['iter'] for r in rows]}")
+    for col in ("entropy", "value_loss", "action_loss", "mean_rew", "test_mean_rew"):
+        if not math.isfinite(float(rows[0][col])):
+            raise AssertionError(f"specialist progress.csv: {col} = {rows[0][col]}")
+    ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
+    out = dict(warm_start=tag, launches=launches["K2"], seconds=seconds,
+               split=trainer.update_times[0],
+               rollout_ms_per_step=1e3 * trainer.update_times[0]["rollout_s"] / cfg.num_steps,
+               test_ms_per_step=(1e3 * trainer.update_times[0]["test_s"]
+                                 / trainer.env.cfg.max_episode_steps),
+               specialist=ckpt.restore("latest")["curriculum"]["specialist"],
+               specialist_files=[t for t in ckpt.tags() if t.startswith("specialist_")],
+               progress={k: rows[0][k] for k in ("fps", "entropy", "value_loss", "action_loss",
+                                                  "mean_rew", "test_mean_rew")})
+    print("K2 path (training loop, round-5 specialist, warm-started):", json.dumps(out),
+          flush=True)
+    return dict(out, exp=exp)
+
+
+# the trajectory dump's arrays (runtime/enjoy.py write_dump), as the JAX
+# package's enjoy writes them (tests/test_torch_enjoy.py holds the two
+# equal): name -> (shape with T steps, NB bodies, A actions, S stones, K
+# value grids; dtype)
+DUMP = {"body_pos": (("T", "NB", 3), "float32"), "body_quat": (("T", "NB", 4), "float32"),
+        "rewards": (("T",), "float64"), "contacts": (("T", 2), "bool"),
+        "actions": (("T", "A"), "float32"), "values": (("T",), "float64"),
+        "stones": (("S", 6), "float32"), "body_names": (("NB",), "<U16"),
+        "joint_names": (("A",), "<U16"), "value_grids": (("K", 11, 11), "float32")}
+
+
+def check_dump(path: str, cfg) -> dict:
+    """The dump's keys, shapes and dtypes against DUMP (an empty value-grid
+    stack is float64, as numpy's zeros). Returns T and K."""
+    import numpy as np
+
+    data = np.load(path)
+    dims = dict(T=len(data["rewards"]), NB=cfg.model.nbodies, A=cfg.action_dim,
+                S=cfg.n_stones, K=len(data["value_grids"]))
+    want = {k: (tuple(dims.get(d, d) for d in shape), dtype) for k, (shape, dtype) in DUMP.items()}
+    if not dims["K"]:
+        want["value_grids"] = ((0, 11, 11), "float64")
+    got = {k: (data[k].shape, str(data[k].dtype)) for k in data.files}
+    if got != {k: (shape, str(np.dtype(d))) for k, (shape, d) in want.items()}:
+        raise AssertionError(f"{path}: {got}, expected {want}")
+    return dict(steps=dims["T"], value_grids=dims["K"])
+
+
+def enjoy_paths(runs: str, spec_exp: str) -> dict:
+    """enjoy.main on the card: (a) Walker3D on LargePlank from the
+    specialist run's checkpoints/latest with --plot-value --dump, exactly
+    one K2 launch per step of the episode, the dump as DUMP; (b) the same
+    policy pickled in the reference's layout (tests/reference_policy.py, as
+    the CPU tests build one), loaded equal to it, and run on the default
+    disc config: one K1 launch per step. No specialist_<k> file is read.
+    Then a profile of an enjoy step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime import enjoy
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from reference_policy import write_reference_policy
+
+    latest = os.path.join(spec_exp, "checkpoints", "latest")
+    weights = CheckpointManager.read(f"{latest}.pt")["policy"]
+    ref_pt = os.path.join(runs, "ref.pt")
+    write_reference_policy(ref_pt, 60, 21, 1, state=weights)
+    out = {}
+    for name, variant, argv in (
+            ("plank", "K2", ["--plank-class", "LargePlank", "--net", latest, "--plot-value"]),
+            ("reference", "K1", ["--net", ref_pt])):
+        dump = os.path.join(runs, f"enjoy_{name}.npz")
+        torch.cuda.synchronize()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            enjoy.main(argv + ["--steps", str(ENJOY_STEPS), "--dump", dump])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        env = make_env("Walker3DStepperEnv-v0", **({"plank_class": "LargePlank"}
+                                                   if variant == "K2" else {}))
+        got = check_dump(dump, env.cfg)
+        check_launches(f"enjoy ({name})", launches, variant, got["steps"], plain[0])
+        out[name] = dict(got, launches=launches[variant], seconds=seconds,
+                         ms_per_step=1e3 * seconds / got["steps"])
+    state, n = enjoy.load_params(ref_pt, env, 1)
+    if n != 1 or state.keys() != weights.keys() or not all(
+            torch.equal(state[k].cpu(), weights[k]) for k in weights):
+        raise AssertionError("the reference pickle does not load as the policy it was made of")
+    # where an enjoy step's time goes: its first steps on LargePlank under
+    # torch.profiler, after the counted runs
+    env = make_env("Walker3DStepperEnv-v0", plank_class="LargePlank")
+    policy = enjoy.policy_from_state(weights, env, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        episode = enjoy.run_episode(env, policy, 5, False, 0,
+                                    generator=torch.Generator(env.device).manual_seed(0))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_time(prof, wall_ms, episode["steps"])
+    print("enjoy paths:", json.dumps(out), flush=True)
+    return out
+
+
+def card_vs_cpu_episode(spec_exp: str, steps: int = CARD_CPU_EPISODE_STEPS) -> dict:
+    """enjoy.run_episode of the specialist run's policy on Walker3D
+    LargePlank, on the card (K2) and on the CPU (the plain version the CPU
+    tests hold against the JAX package), from the same draws: frames,
+    rewards, actions, values and value grids within 1e-3; contacts, hits
+    and steps equal."""
+    import numpy as np
+    import torch
+
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.envs import terrain as terr
+    from steppingstone_tpu_torch.runtime import enjoy
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    weights = CheckpointManager.read(os.path.join(spec_exp, "checkpoints", "latest.pt"))["policy"]
+    cur = terr.default_curriculum(batch=1)
+    cpu_env = make_env("Walker3DStepperEnv-v0", device="cpu", plank_class="LargePlank")
+    cpu_policy = enjoy.policy_from_state(weights, cpu_env, 1, "cpu")
+    # the first of a few seeds whose CPU episode hits a stone, so that a
+    # value grid is compared too
+    for seed in range(6):
+        g = torch.Generator().manual_seed(seed)
+        reset = cpu_env.draw_reset(cur, g)
+        draws = [cpu_env.draw_step(cur, g) for _ in range(steps)]
+        c = enjoy.run_episode(cpu_env, cpu_policy, steps, True, 0, reset_draws=reset,
+                              step_draws=draws)
+        if c["hits"]:
+            break
+    env = make_env("Walker3DStepperEnv-v0", plank_class="LargePlank")
+    k = enjoy.run_episode(env, enjoy.policy_from_state(weights, env, 1), steps, True, 0,
+                          reset_draws=_to(reset, "cuda"), step_draws=_to(draws, "cuda"))
+    err = lambda a, b: float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+    got = dict(seed=seed, steps=k["steps"], hits=k["hits"], value_grids=len(k["value_grids"]),
+               max_frame_err=max(err([f[i] for f in k["frames"]], [f[i] for f in c["frames"]])
+                                 for i in range(2)),
+               **{f"max_{f}_err": err(k[f], c[f]) for f in ("rewards", "actions", "values")})
+    if k["value_grids"]:
+        got["max_grid_err"] = err(k["value_grids"], c["value_grids"])
+    print("card vs CPU episode:", json.dumps(got), flush=True)
+    if (k["steps"], k["hits"], len(k["value_grids"])) != (
+            c["steps"], c["hits"], len(c["value_grids"])):
+        raise AssertionError(f"steps, hits or grids differ: card {got}, CPU {c['steps']}, "
+                             f"{c['hits']}, {len(c['value_grids'])}")
+    if not np.array_equal(k["contacts"], c["contacts"]):
+        raise AssertionError("foot contacts differ between the card and the CPU")
+    for f in ("frames", "rewards", "actions", "values", "value_grids"):
+        pairs = ([(np.stack([x[i] for x in k[f]]), np.stack([x[i] for x in c[f]]))
+                  for i in range(2)] if f == "frames" else [(k[f], c[f])])
+        for a, b in pairs:
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-3,
+                                       err_msg=f)
+    return got
+
+
 def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
     """2 + 2 updates against 4 unbroken (Walker3D, fixed curriculum, no test
     fleet, as tests/test_runtime.py runs it): every progress.csv column but
@@ -1395,6 +1667,10 @@ def main() -> int:
         timings[variant] = time_variant(env, variant, *results[NUM_ENVS][1])
         path_timings[variant] = {str(b): time_variant(env, variant, *results[b][1])
                                  for b in PATH_BATCHES.get(variant, ())}
+        if variant in ONE_ENV:
+            got, one = check_one_env(env, variant, *results[NUM_ENVS][1])
+            checks[variant].append(got)
+            path_timings[variant]["1"] = time_variant(env, variant, *one)
     # K2 on Mike's states, at its round-5 run's fleet and test fleet
     mike = make_env("MikeStepperEnv-v0", plank_class="LargePlank")
     checks["K2"] += [check_variant(mike, "K2", b)[0] for b in (R5_ENVS, R5_TEST_ENVS)]
@@ -1412,14 +1688,22 @@ def main() -> int:
     rotated_walker = rotated_loop(envs["K4"], "K4", ROT_WALKER_STEPS)
     paths["K2+K4"] = rotated_loop(envs["K2+K4"], "K2+K4", ROT_PLANK_STEPS)
     paths["K2+K3+K4"] = rotated_loop(envs["K2+K3+K4"], "K2+K3+K4", ROT_PLANK_STEPS)
-    loop = training_loop_path()
-    mike_run = mike_path()
-    thr = threshold_path()
-    paths["K2"] = dict(launches=thr["first"]["launches"] + thr["resumed"]["launches"])
+    with tempfile.TemporaryDirectory() as runs:
+        loop = training_loop_path(runs)
+        mike_run = mike_path()
+        thr = threshold_path()
+        spec = specialist_path(runs, os.path.join(runs, "r5_w3d"))
+        paths["K2"] = dict(launches=spec["launches"])
+        enjoyed = enjoy_paths(runs, spec["exp"])
+        card_vs_cpu_episode(spec["exp"])
     resume_is_total()
     # a variant's other paths, with their launches
     other_paths = {
-        "K2": {"AdaptiveSampling.pre_update (16 envs)": thr["adaptive"]["launches"],
+        "K1": {"enjoy, reference pickle, one env": enjoyed["reference"]["launches"]},
+        "K2": {"enjoy, LargePlank, one env": enjoyed["plank"]["launches"],
+               "round-5 threshold-sampling Trainer.train (r5_thr150)":
+                   thr["first"]["launches"] + thr["resumed"]["launches"],
+               "AdaptiveSampling.pre_update (16 envs)": thr["adaptive"]["launches"],
                "round-5 Walker3D Trainer.train (fixed curriculum)":
                    loop["first"]["launches"] + loop["resumed"]["launches"],
                "round-5 Mike Trainer.train": mike_run["launches"],

@@ -12,7 +12,9 @@ field, where the layout differs. Tags the training loop writes: `latest`,
 `best`, numbered frame counts, `crash` and `specialist_<k>`.
 
 Only this layout is read: checkpoints of the JAX package (orbax) are not
-(ROADMAP item 13).
+(ROADMAP item 13b). Warm starts and `enjoy` read a snapshot's `"policy"`
+from any file of this layout (`CheckpointManager.read`); the reference's
+pickled policies go through runtime/torch_import.py instead.
 """
 
 from __future__ import annotations
@@ -84,9 +86,16 @@ class CheckpointManager:
             if os.path.exists(tmp):
                 os.remove(tmp)
 
+    @staticmethod
+    def read(path: str):
+        """The tree saved in the file `path`, on the host (NamedTuples as
+        dicts); a file holding anything but tensors and plain containers is
+        refused with pickle.UnpicklingError."""
+        return torch.load(path, map_location="cpu", weights_only=True)
+
     def restore(self, tag: str):
         """The saved tree, on the host (NamedTuples as dicts)."""
-        return torch.load(self.path(tag), map_location="cpu", weights_only=True)
+        return self.read(self.path(tag))
 
     def restore_like(self, tag: str, template):
         """The snapshot under `tag` in the structure of `template`, tensors

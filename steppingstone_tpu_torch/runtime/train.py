@@ -8,7 +8,8 @@ iterations act deterministically and step at 10x lr with their own Adam
 state.
 
 `Trainer.train` is the host loop around it, step for step the JAX
-package's: the LR schedule and warm-up, the four curriculum strategies
+package's: the warm start (`net` / `load_saved_controller`), the LR
+schedule and warm-up, the four curriculum strategies
 (the fixed curriculum, the specialist schedule, and the value-based
 adaptive and threshold sampling with the grid-mode assist ladder and the
 threshold coupling of value-only rounds), the deterministic test fleet
@@ -35,7 +36,8 @@ import torch
 
 from steppingstone_tpu_torch.agents.gae import compute_gae, normalize_advantages
 from steppingstone_tpu_torch.agents.mirror import MirrorSpec
-from steppingstone_tpu_torch.agents.networks import ActorCritic, cap_logstd, reinflate_logstd
+from steppingstone_tpu_torch.agents.networks import (ActorCritic, cap_logstd, reinflate_logstd,
+                                                     reset_logstd)
 from steppingstone_tpu_torch.agents.ppo import PPOConfig, init_optimizer, ppo_update
 from steppingstone_tpu_torch.agents.rollout import EpisodeStats, collect_rollout, evaluate
 from steppingstone_tpu_torch.device import resolve_device
@@ -45,8 +47,10 @@ from steppingstone_tpu_torch.envs.vector import VecEnv
 from steppingstone_tpu_torch.runtime import curriculum as curr
 from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
 from steppingstone_tpu_torch.runtime.config import TrainConfig, init_experiment, parse_cli
+from steppingstone_tpu_torch.runtime.enjoy import load_params, policy_from_state
 from steppingstone_tpu_torch.runtime.loggers import ConsoleCSVLogger
 from steppingstone_tpu_torch.runtime.schedules import exponential_decay, linear_decay
+from steppingstone_tpu_torch.runtime.torch_import import REFERENCE_MODELS
 
 
 class IterationDraws(NamedTuple):
@@ -99,12 +103,27 @@ class Trainer:
 
     def init_params(self, generator: torch.Generator | None = None) -> ActorCritic:
         """A fresh actor-critic (init drawn from `generator`, a CPU
-        generator, default seeded with cfg.seed)."""
+        generator, default seeded with cfg.seed), or with
+        `load_saved_controller` / `net` the warm start: the policy of
+        `cfg.net` (a port checkpoint or a reference .pt), else the
+        reference's `{env_name}_base.pt`, with every logstd reset to
+        `warm_start_logstd`."""
         cfg = self.cfg
         if cfg.load_saved_controller or cfg.net:
-            raise NotImplementedError(
-                "warm starts (load_saved_controller / net) come with the checkpoint "
-                "import, ROADMAP item 13")
+            # reference warm-start flow (`train.py:147-153`); `net=` may
+            # also name one of the port's checkpoints, e.g. warm-starting
+            # Mike from the trained Walker3D policy (same skeleton/spaces)
+            path = cfg.net or os.path.join(REFERENCE_MODELS, f"{cfg.env_name}_base.pt")
+            print(f"Loading model {path}", flush=True)
+            state, n_critics = load_params(path, self.env, cfg.num_ensembles, self.device)
+            if n_critics != cfg.num_ensembles:
+                raise SystemExit(
+                    f"checkpoint has {n_critics} critics, config wants "
+                    f"{cfg.num_ensembles} (set num_ensembles={n_critics})")
+            # reference resets exploration noise on warm start
+            # (train.py:153, controller.py:102)
+            return reset_logstd(policy_from_state(state, self.env, n_critics, self.device),
+                                cfg.warm_start_logstd)
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         return ActorCritic(self.env.observation_dim, self.env.action_dim, cfg.num_ensembles,

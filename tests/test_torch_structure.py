@@ -10,6 +10,8 @@ are control_step_warp<PD, PLANK, ROT>, a warp per env."""
 
 import ast
 import dataclasses
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +25,7 @@ from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "steppingstone_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "steppingstone_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "steppingstone_tpu")
 
 
 @pytest.fixture(autouse=True)
@@ -53,12 +55,30 @@ def test_port_imports_no_jax():
                    "agents/ppo.py", "runtime/config.py", "runtime/train.py",
                    "physics/urdf.py", "physics/mjcf_export.py", "runtime/checkpoint.py",
                    "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py",
-                   "viz/sampling_prob.py"):
+                   "viz/sampling_prob.py", "runtime/enjoy.py", "runtime/torch_import.py",
+                   "viz/render.py", "viz/stats_hud.py", "viz/value_grids.py",
+                   "viz/plot_from_csv.py", "viz/fast_plot.py"):
         assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
     assert not _forbidden("steppingstone_tpu_torch.physics")
     assert _forbidden("steppingstone_tpu.physics") and _forbidden("jax.numpy")
+    assert _forbidden("orbax.checkpoint")
+
+
+def test_inference_pulls_in_no_matplotlib():
+    """The card's machine has no matplotlib: enjoy, the warm start and the
+    viz modules that import it lazily load without it."""
+    code = ("import sys\n"
+            "import steppingstone_tpu_torch.runtime.enjoy, steppingstone_tpu_torch.runtime.train\n"
+            "import steppingstone_tpu_torch.viz.render, steppingstone_tpu_torch.viz.stats_hud\n"
+            "import steppingstone_tpu_torch.viz.value_grids, steppingstone_tpu_torch.viz.plot_from_csv\n"
+            "import steppingstone_tpu_torch.viz.sampling_prob\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'pandas', 'jax')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True).stdout
+    assert out.strip() == "[]"
 
 
 def test_entry_points_default_to_the_card():
@@ -95,6 +115,14 @@ def test_entry_points_default_to_the_card():
         VecEnv(env, 4)
     assert VecEnv(env, 4, device="cpu").device.type == "cpu"
     assert next(ActorCritic(60, 21, device="cpu").parameters()).device.type == "cpu"
+    # inference: enjoy's CLI and its loader run on the card (checked before
+    # any file is read)
+    from steppingstone_tpu_torch.runtime import enjoy
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        enjoy.main(["--net", "/nonexistent/latest", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        enjoy.load_params("/nonexistent/latest", env, 1)
 
 
 def _k1_args(b=4, n_stones=20):
@@ -287,13 +315,14 @@ def card():
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("batch", [4096, 64])
+@pytest.mark.parametrize("batch", [4096, 64, 1])
 @pytest.mark.parametrize("variant", ["K1", "K2", "K3", "K2+K3", "K4", "K3+K4", "K2+K4",
                                      "K2+K3+K4"])
 def test_warp_design_matches_plain_on_the_card(card, variant, batch):
     """Every variant runs control_step_warp<PD, PLANK, ROT> (a warp per
-    env): against the plain version at the main path's 4096 envs and at 64
-    (one warp on an SM), counted under the variant and never as the
+    env): against the plain version at the main path's 4096 envs, at 64
+    (one warp on an SM) and at 1 (enjoy's single env: one block, one live
+    warp behind the tail guard), counted under the variant and never as the
     thread-per-env design."""
     thread = f"{variant}@thread"
     before = step_kernel.CONTROL_STEP.launches[thread]

@@ -78,7 +78,9 @@ def test_trainer_refuses_warm_start_and_builds_the_cassie_config():
     assert len(policy.critics) == 2 and policy.logstd.shape == (10,)
     tr = Trainer(tconfig.TrainConfig(**{**CASSIE, "use_mirror": True, "net": "x.pt"}), device="cpu")
     assert tr.ppo_cfg.mirror is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # warm starts are ported: a `net` that names no checkpoint is refused,
+    # naming the path
+    with pytest.raises(FileNotFoundError, match="x.pt"):
         tr.init_params()
 
 
