@@ -18,7 +18,9 @@ order; any failure exits non-zero and no phase's failure is caught:
 3. each variant against its plain PyTorch version (engine._step_scan) on
    the card at B=4096 and a ragged B=1000 (K2 and K2+K3 also at 1024 and
    64, the round-5 runs' fleet and test fleet, K2 also at 16, the value
-   grid's eval fleet), on states from a short rollout
+   grid's eval fleet, and at 512 and 32, a rank's fleet and test fleet of
+   the sharded round-5 run; K1 also at 512, a rank's fleet of the dry
+   run), on states from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
    all occur; K1 on Walker3D torques over discs, K2 on Walker3D torques
@@ -62,10 +64,11 @@ order; any failure exits non-zero and no phase's failure is caught:
    - the training loop: Trainer.train from the CLI's parser on the round-5
      Walker3D run (scripts/round5_runs.sh COMMON + HARDEN + runs/r5_w3d:
      1024 envs x 400 steps, minibatches of 1024, 64 test envs every 10
-     updates, LargePlank, fixed curriculum), cut to 1 update, then
-     resumed from checkpoints/latest for a second: K2 launches equal the
-     control steps taken (test fleet included), progress.csv has the
-     reference header, the artifacts exist, losses are finite
+     updates, LargePlank, fixed curriculum), cut to 1 update: K2 launches
+     equal the control steps taken (test fleet included), progress.csv
+     has the reference header, the artifacts exist, losses are finite
+     (its resume to a second update is the sharded path's: cut to keep
+     the script near its time)
    - Mike: Trainer.train from the CLI's parser on the round-5 Mike run
      (scripts/round5_runs.sh COMMON + HARDEN + runs/r5_mike_scratch:
      MikeStepperEnv-v0, LargePlank, fixed curriculum), cut to one update:
@@ -105,6 +108,20 @@ order; any failure exits non-zero and no phase's failure is caught:
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
      second unbroken run
+   - sharded (parallel/): two ranks share the card, each a process posing
+     as a one-GPU host (LOCAL_RANK 0) over gloo, since NCCL refuses two
+     ranks on one GPU. (a) parallel.dryrun_multichip(2): one Walker3D
+     iteration at 1,024 envs x 2 steps (512 a rank) against the same
+     iteration in this process, the losses within the JAX package's rel
+     1e-3, exactly 2 K1 launches a rank; (b) one rank under NCCL at world
+     size 1 runs that iteration through every collective, equal bit for
+     bit to the iteration without a process group; (c) the round-5
+     Walker3D run (R5_W3D with mesh_devices=2: 512 envs and 32 test envs a
+     rank), cut to 1 update then resumed to 2: each rank's K2 launches
+     equal its control steps, no plain call, the ranks end with the same
+     learner, rank 0 alone writes progress.csv (the reference header) and
+     the checkpoints; each rank's time in collectives per minibatch step
+     (the gradient all-reduce) and per update is printed
 5. one JSON line `{"kernels": [...]}` (each variant with its `design`,
    `earlier_ms`, the thread-per-env design's time in this run, and
    `occupancy`), the script's wall time, the card line, and last
@@ -133,10 +150,20 @@ R5_ENVS, R5_TEST_ENVS = 1024, 64
 # the value grid's eval fleet (steppingstone_tpu_torch/runtime/curriculum.py
 # EVAL_ENVS) and its control steps (EVAL_STEPS)
 GRID_ENVS, GRID_STEPS = 16, 160
+# the sharded path: the env fleet over SHARDED_RANKS ranks, each a process
+# posing as a one-GPU host on the card (LOCAL_RANK 0), over gloo (NCCL
+# refuses two ranks on one GPU); the dry run's fleet and steps
+SHARDED_RANKS = 2
+DRYRUN_ENVS = 1024
 # K2 and K2+K3 are also held to their plain version, and timed, at the
 # batch sizes their round-5 runs give them (both take COMMON's fleet and
-# test fleet, scripts/round5_runs.sh; K2 also the value grid's eval fleet)
-PATH_BATCHES = {"K2": (R5_ENVS, R5_TEST_ENVS, GRID_ENVS), "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
+# test fleet, scripts/round5_runs.sh; K2 also the value grid's eval fleet
+# and a rank's fleet and test fleet of the sharded round-5 run); K1 at a
+# rank's fleet of the dry run
+PATH_BATCHES = {"K1": (DRYRUN_ENVS // SHARDED_RANKS,),
+                "K2": (R5_ENVS, R5_TEST_ENVS, GRID_ENVS, R5_ENVS // SHARDED_RANKS,
+                       R5_TEST_ENVS // SHARDED_RANKS),
+                "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
 TRAIN_STEPS = 100
@@ -174,10 +201,15 @@ R5_COMMON = [f"num_processes={R5_ENVS}", "episode_steps=409600", "mini_batch_siz
 R5_HARDEN = ["test_curriculum=True", "advance_on_test=True", "final_logstd=-2.5",
              "anneal_updates=150", "kl_cutoff=0.12"]
 # the round-5 Walker3D run, runs/r5_w3d (its own line :57-58), cut in depth
-# to UPDATES_FIRST updates then a resume to UPDATES_RESUMED
+# to UPDATES_FIRST updates (one process), and over two ranks then a resume
+# to UPDATES_RESUMED
 R5_W3D = R5_COMMON + R5_HARDEN + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
                                   "use_curriculum=True", "checkpoint_interval=1"]
 UPDATES_FIRST, UPDATES_RESUMED = 1, 2
+# the same run over SHARDED_RANKS ranks: COMMON's mesh_devices=1 names one
+# device; over two ranks the fleet shards over both (512 envs and 32 test
+# envs a rank)
+R5_W3D_SHARDED = R5_W3D + [f"mesh_devices={SHARDED_RANKS}"]
 # the round-5 Mike run, runs/r5_mike_scratch (its own line :92-95), cut in
 # depth to one update: 400 control steps and the test fleet's episode
 # (1000 steps), each one K2 launch
@@ -1075,10 +1107,10 @@ def read_progress(path: str):
 
 def training_loop_path(runs: str) -> dict:
     """Trainer.train on the round-5 Walker3D run, from the CLI's parser, in
-    `runs`/r5_w3d (left in place for the specialist run's warm start):
-    UPDATES_FIRST updates, then resume=True to UPDATES_RESUMED, each update
-    400 K2 launches and the test fleet (at update 0) one K2 launch per step
-    of an episode length."""
+    `runs`/r5_w3d (left in place for the specialist run's warm start), cut
+    to UPDATES_FIRST update: 400 K2 launches and the test fleet (at update
+    0) one K2 launch per step of an episode length. The same run's resume
+    is checked over two ranks (sharded_loop_path)."""
     import torch
 
     from steppingstone_tpu_torch.physics import step_kernel
@@ -1086,54 +1118,32 @@ def training_loop_path(runs: str) -> dict:
     from steppingstone_tpu_torch.runtime.config import parse_cli
     from steppingstone_tpu_torch.runtime.train import Trainer
 
-    out = {}
     exp = os.path.join(runs, "r5_w3d")
-    for phase, updates, extra in (("first", UPDATES_FIRST, []),
-                                  ("resumed", UPDATES_RESUMED, ["resume=True"])):
-        cfg = parse_cli(R5_W3D + [f"experiment_dir={exp}"] + extra)
-        cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
-        trainer = Trainer(cfg)
+    cfg = parse_cli(R5_W3D + [f"experiment_dir={exp}"])
+    cfg = parse_cli([f"num_frames={UPDATES_FIRST * cfg.episode_steps}"], base=cfg)
+    trainer = Trainer(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_kernel.CONTROL_STEP.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        trainer.train()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_kernel.CONTROL_STEP.reset_counts()
-        with counting_plain() as plain:
-            t0 = time.perf_counter()
-            trainer.train()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        launches = dict(step_kernel.CONTROL_STEP.launches)
-        ran = range(trainer.start_update, cfg.num_updates)
-        tests = sum(1 for j in ran if j % cfg.test_interval == 0)
-        steps = len(ran) * cfg.num_steps + tests * trainer.env.cfg.max_episode_steps
-        check_launches(f"training loop ({phase})", launches, "K2", steps, plain[0])
-        out[phase] = dict(
-            launches=launches["K2"], control_steps=steps, start_update=trainer.start_update,
-            seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-            update_times=trainer.update_times)
-        if phase == "first":
-            ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
-            before = ckpt.restore("latest")
-    if out["resumed"]["start_update"] != UPDATES_FIRST:
-        raise AssertionError(f"the resumed run started at update "
-                             f"{out['resumed']['start_update']}")
+        seconds = time.perf_counter() - t0
+    launches = dict(step_kernel.CONTROL_STEP.launches)
+    steps = r5_control_steps(trainer, cfg)
+    check_launches("training loop", launches, "K2", steps, plain[0])
+    out = dict(launches=launches["K2"], control_steps=steps, seconds=seconds,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               update_times=trainer.update_times)
     # artifacts, progress.csv, finite losses
     for name in ("configs.json", "run.json", "episodes.csv", "checkpoints/latest.pt",
                  "checkpoints/best.pt"):
         if not os.path.exists(os.path.join(exp, name)):
             raise AssertionError(f"training loop: {name} is missing")
     header, rows = read_progress(os.path.join(exp, "progress.csv"))
-    if header != PROGRESS_HEADER:
-        raise AssertionError(f"progress.csv header {header}")
-    if [int(r["iter"]) for r in rows] != list(range(1, UPDATES_RESUMED + 1)):
-        raise AssertionError(f"progress.csv rows for updates {[r['iter'] for r in rows]}")
-    for r in rows:
-        for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
-            if not math.isfinite(float(r[col])):
-                raise AssertionError(f"progress.csv update {r['iter']}: {col} = {r[col]}")
-    if rows[0]["test_mean_rew"] == "" or rows[1]["test_mean_rew"] != "":
-        raise AssertionError("test columns: fresh at update 1, blank at update 2 expected")
-    # the resumed run restored the counter and the curriculum state and
-    # carried them into its own checkpoint
+    check_r5_progress("training loop", header, rows, UPDATES_FIRST)
+    # the checkpoint: its save and restore, the installed level
     ckpt = CheckpointManager(os.path.join(exp, "checkpoints"))
     t0 = time.perf_counter()
     after = ckpt.restore("latest")
@@ -1141,14 +1151,7 @@ def training_loop_path(runs: str) -> dict:
     t0 = time.perf_counter()
     ckpt.save("smoke_copy", after)
     save_s = time.perf_counter() - t0
-    if (before["update"], after["update"]) != (UPDATES_FIRST, UPDATES_RESUMED):
-        raise AssertionError(f"checkpoint updates {before['update']} -> {after['update']}")
-    cur = {k: after["curriculum"][k] for k in ("fixed_level", "fixed_frac", "anneal_start")}
-    if cur != {k: before["curriculum"][k] for k in cur}:
-        raise AssertionError(f"curriculum {before['curriculum']} -> {after['curriculum']}")
-    level = after["env_state"]["cur"]["level"]
-    if not torch.all(level == after["curriculum"]["fixed_frac"]):
-        raise AssertionError("the installed level differs from the curriculum's")
+    check_r5_snapshot("training loop", after, UPDATES_FIRST)
     out.update(
         progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "action_loss", "mean_rew",
                                      "test_mean_rew")} for r in rows],
@@ -1157,6 +1160,41 @@ def training_loop_path(runs: str) -> dict:
         curriculum=after["curriculum"])
     print("K2 path (training loop, round-5 Walker3D):", json.dumps(out), flush=True)
     return out
+
+
+def r5_control_steps(trainer, cfg) -> int:
+    """The control steps of a round-5 Trainer.train call: num_steps an
+    update and an episode length of the test fleet every test_interval."""
+    ran = range(trainer.start_update, cfg.num_updates)
+    tests = sum(1 for j in ran if j % cfg.test_interval == 0)
+    return len(ran) * cfg.num_steps + tests * trainer.env.cfg.max_episode_steps
+
+
+def check_r5_progress(what: str, header, rows, updates: int) -> None:
+    """progress.csv of a round-5 run over `updates` updates: the reference
+    header, a row per update, finite losses, the test columns fresh at
+    update 1 (test_interval 10) and blank after."""
+    if header != PROGRESS_HEADER:
+        raise AssertionError(f"{what}: progress.csv header {header}")
+    if [int(r["iter"]) for r in rows] != list(range(1, updates + 1)):
+        raise AssertionError(f"{what}: progress.csv rows for updates {[r['iter'] for r in rows]}")
+    for r in rows:
+        for col in ("entropy", "value_loss", "action_loss", "mean_rew"):
+            if not math.isfinite(float(r[col])):
+                raise AssertionError(f"{what}: progress.csv update {r['iter']}: {col} = {r[col]}")
+    if rows[0]["test_mean_rew"] == "" or any(r["test_mean_rew"] != "" for r in rows[1:]):
+        raise AssertionError(f"{what}: test columns fresh at update 1 and blank after expected")
+
+
+def check_r5_snapshot(what: str, snap: dict, update: int) -> None:
+    """A round-5 run's checkpoint after `update` updates: its counter, and
+    the fixed curriculum's level installed on every env of the fleet."""
+    import torch
+
+    if snap["update"] != update:
+        raise AssertionError(f"{what}: the checkpoint holds update {snap['update']}")
+    if not torch.all(snap["env_state"]["cur"]["level"] == snap["curriculum"]["fixed_frac"]):
+        raise AssertionError(f"{what}: the installed level differs from the curriculum's")
 
 
 def mike_path() -> dict:
@@ -1626,6 +1664,164 @@ def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
     return got
 
 
+def sharded_dryrun_path() -> dict:
+    """parallel.dryrun_multichip on the card: one Walker3D training
+    iteration at DRYRUN_ENVS envs x dryrun.STEPS steps (mirror on,
+    minibatches of half the frames) over SHARDED_RANKS gloo ranks on the
+    card, against the same iteration in this process: the losses within
+    the JAX package's rel 1e-3, every rank exactly dryrun.STEPS K1 launches
+    (its counts set to 0 just before) and nothing else."""
+    from steppingstone_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(SHARDED_RANKS, backend="gloo", n_envs=DRYRUN_ENVS,
+                                  local_rank=0)
+    for r in out["ranks"]:
+        check_launches(f"dry run, rank {r['rank']}", r["launches"], "K1", dryrun.STEPS, 0)
+    got = dict(ranks=SHARDED_RANKS, envs_per_rank=DRYRUN_ENVS // SHARDED_RANKS,
+               launches=[r["launches"]["K1"] for r in out["ranks"]],
+               largest_rel_loss_diff=max(out["rel"].values()), rel=out["rel"],
+               losses={k: out["ranks"][0]["metrics"][k] for k in out["rel"]},
+               seconds=time.perf_counter() - t0)
+    print("K1 path (sharded dry run):", json.dumps(got), flush=True)
+    return dict(got, single=out["single"])
+
+
+def nccl_world_one(single: dict) -> dict:
+    """One rank under NCCL (the card's backend) at world size 1 runs the
+    dry run's iteration through every collective of the sharded trainer;
+    its metrics, parameters and observations must equal the iteration
+    without a process group (`single`, the dry run's) bit for bit."""
+    import numpy as np
+
+    from steppingstone_tpu_torch.parallel import dryrun, launch
+
+    t0 = time.perf_counter()
+    [rank] = launch.spawn(dryrun.rank_iteration, 1, (DRYRUN_ENVS,))
+    diffs = {"metrics": max(abs(rank["metrics"][k] - single["metrics"][k])
+                            for k in single["metrics"]),
+             "params": float(np.abs(rank["params"] - single["params"]).max()),
+             "obs": float(np.abs(rank["obs"] - single["obs"]).max())}
+    got = dict(backend=rank["backend"], world=rank["world"], largest_diffs=diffs,
+               bit_for_bit=(rank["metrics"] == single["metrics"]
+                            and np.array_equal(rank["params"], single["params"])
+                            and np.array_equal(rank["obs"], single["obs"])),
+               seconds=time.perf_counter() - t0)
+    print("NCCL at world size 1:", json.dumps(got), flush=True)
+    if rank["backend"] != "nccl" or not got["bit_for_bit"]:
+        raise AssertionError(f"NCCL at world size 1 differs from one process: {got}")
+    return got
+
+
+def sharded_loop_rank(exp: str) -> dict:
+    """One rank of the round-5 Walker3D run over SHARDED_RANKS gloo ranks on
+    the card (R5_W3D_SHARDED), from the CLI's parser: UPDATES_FIRST
+    updates, then resume=True to UPDATES_RESUMED. For each call: its K2
+    launches (counts set to 0 just before), which must equal its control
+    steps (the test fleet's included) with no plain call; the checkpoint's
+    update counter and the curriculum installed on the whole fleet; the
+    update times; the time, calls and bytes of its collectives (timed
+    between device synchronizations); a checksum of its learner."""
+    import torch
+
+    from steppingstone_tpu_torch.parallel import mesh as pmesh
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+    from steppingstone_tpu_torch.runtime.config import parse_cli
+    from steppingstone_tpu_torch.runtime.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pmesh.maybe_initialize_distributed("gloo")
+    pmesh.CLOCK.enabled = True
+    out = {}
+    for phase, updates, extra in (("first", UPDATES_FIRST, []),
+                                  ("resumed", UPDATES_RESUMED, ["resume=True"])):
+        cfg = parse_cli(R5_W3D_SHARDED + [f"experiment_dir={exp}"] + extra)
+        cfg = parse_cli([f"num_frames={updates * cfg.episode_steps}"], base=cfg)
+        trainer = Trainer(cfg)
+        torch.cuda.synchronize()
+        pmesh.CLOCK.reset()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain:
+            t0 = time.perf_counter()
+            policy = trainer.train()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        steps = r5_control_steps(trainer, cfg)
+        check_launches(f"sharded loop, rank {trainer.mesh.rank} ({phase})", launches, "K2",
+                       steps, plain[0])
+        # rank 0 wrote the gathered snapshot before train() returned
+        snap = CheckpointManager(os.path.join(exp, "checkpoints")).restore("latest")
+        check_r5_snapshot(f"sharded loop ({phase})", snap, updates)
+        clock = pmesh.CLOCK
+        grad_calls = max(clock.calls["gradient"], 1)
+        out[phase] = dict(
+            rank=trainer.mesh.rank, world=trainer.mesh.world, envs=trainer.venv.num_envs,
+            test_envs=trainer.test_venv.num_envs, launches=launches["K2"],
+            control_steps=steps, start_update=trainer.start_update, seconds=seconds,
+            update_times=trainer.update_times,
+            collectives={k: dict(calls=clock.calls[k], seconds=clock.seconds[k],
+                                 bytes=clock.bytes[k]) for k in clock.calls},
+            gradient_ms_per_minibatch_step=1e3 * clock.seconds["gradient"] / grad_calls,
+            gradient_bytes_per_minibatch_step=clock.bytes["gradient"] // grad_calls,
+            collective_s_per_update=(sum(clock.seconds.values())
+                                     / (cfg.num_updates - trainer.start_update)),
+            curriculum=snap["curriculum"],
+            learner_checksum=float(sum(p.detach().double().sum() for p in policy.parameters())))
+    return out
+
+
+def sharded_loop_path(runs: str) -> dict:
+    """The round-5 Walker3D run over SHARDED_RANKS ranks (sharded_loop_rank
+    on each): each rank holds its slice of the fleet and the test fleet,
+    launches K2 once per control step and resumes from update
+    UPDATES_FIRST with the curriculum restored; the ranks end with the
+    same learner; rank 0 alone wrote progress.csv (the reference header, a
+    row per update, finite losses, the test columns fresh at update 1) and
+    the checkpoints."""
+    from steppingstone_tpu_torch.parallel.launch import spawn
+
+    exp = os.path.join(runs, "r5_w3d_sharded")
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_loop_rank, SHARDED_RANKS, (exp,), local_rank=0)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        first, resumed = r["first"], r["resumed"]
+        if (first["envs"], first["test_envs"]) != (R5_ENVS // SHARDED_RANKS,
+                                                   R5_TEST_ENVS // SHARDED_RANKS):
+            raise AssertionError(f"rank {first['rank']} holds {first['envs']} envs and "
+                                 f"{first['test_envs']} test envs")
+        if resumed["start_update"] != UPDATES_FIRST:
+            raise AssertionError(f"rank {first['rank']} resumed at {resumed['start_update']}")
+    if len({r["resumed"]["learner_checksum"] for r in ranks}) != 1:
+        raise AssertionError(f"the ranks' learners differ: "
+                             f"{[r['resumed']['learner_checksum'] for r in ranks]}")
+    # the resumed call restored the curriculum and carried it on
+    before, after = ranks[0]["first"]["curriculum"], ranks[0]["resumed"]["curriculum"]
+    if any(before[k] != after[k] for k in ("fixed_level", "fixed_frac", "anneal_start")):
+        raise AssertionError(f"curriculum {before} -> {after}")
+    files = sorted(os.listdir(exp))
+    if any(".bak" in f for f in files) or not os.path.exists(
+            os.path.join(exp, "checkpoints", "latest.pt")):
+        raise AssertionError(f"the sharded run wrote {files}")
+    header, rows = read_progress(os.path.join(exp, "progress.csv"))
+    check_r5_progress("sharded loop", header, rows, UPDATES_RESUMED)
+    got = dict(ranks=ranks, seconds=seconds, files=files,
+               progress=[{k: r[k] for k in ("iter", "fps", "value_loss", "action_loss",
+                                            "mean_rew", "test_mean_rew")} for r in rows])
+    print("K2 path (sharded round-5 Walker3D, per rank):", json.dumps(got), flush=True)
+    for r in ranks:
+        for phase in ("first", "resumed"):
+            p = r[phase]
+            print(f"collectives, rank {p['rank']} ({phase}): gradient all-reduce "
+                  f"{p['gradient_ms_per_minibatch_step']:.3f} ms and "
+                  f"{p['gradient_bytes_per_minibatch_step']} bytes per minibatch step, all "
+                  f"collectives {p['collective_s_per_update']:.2f} s per update", flush=True)
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -1693,19 +1889,30 @@ def main() -> int:
         mike_run = mike_path()
         thr = threshold_path()
         spec = specialist_path(runs, os.path.join(runs, "r5_w3d"))
-        paths["K2"] = dict(launches=spec["launches"])
         enjoyed = enjoy_paths(runs, spec["exp"])
         card_vs_cpu_episode(spec["exp"])
     resume_is_total()
+    # the sharded path (this slice's): the dry run, NCCL at world size 1,
+    # the round-5 Walker3D run over two ranks
+    dry = sharded_dryrun_path()
+    nccl_world_one(dry["single"])
+    with tempfile.TemporaryDirectory() as runs:
+        sharded = sharded_loop_path(runs)
+    paths["K2"] = dict(launches=sum(sharded["ranks"][0][p]["launches"]
+                                    for p in ("first", "resumed")))
     # a variant's other paths, with their launches
     other_paths = {
-        "K1": {"enjoy, reference pickle, one env": enjoyed["reference"]["launches"]},
-        "K2": {"enjoy, LargePlank, one env": enjoyed["plank"]["launches"],
+        "K1": {"enjoy, reference pickle, one env": enjoyed["reference"]["launches"],
+               "dryrun_multichip(2), each rank": dry["launches"]},
+        "K2": {"round-5 Walker3D Trainer.train over two ranks, each rank":
+                   [sum(r[p]["launches"] for p in ("first", "resumed")) for r in sharded["ranks"]],
+               "round-5 specialist Trainer.train, warm-started": spec["launches"],
+               "enjoy, LargePlank, one env": enjoyed["plank"]["launches"],
                "round-5 threshold-sampling Trainer.train (r5_thr150)":
                    thr["first"]["launches"] + thr["resumed"]["launches"],
                "AdaptiveSampling.pre_update (16 envs)": thr["adaptive"]["launches"],
-               "round-5 Walker3D Trainer.train (fixed curriculum)":
-                   loop["first"]["launches"] + loop["resumed"]["launches"],
+               "round-5 Walker3D Trainer.train (fixed curriculum, one update)":
+                   loop["launches"],
                "round-5 Mike Trainer.train": mike_run["launches"],
                "Walker3D LargePlank train_iteration": walker_plank["launches"]},
         "K4": {"rotated Walker3D engine.step loop": rotated_walker["launches"]},

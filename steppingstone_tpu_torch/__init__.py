@@ -11,6 +11,8 @@ a leading env axis (where the JAX code is written per env and `vmap`-ed),
               card and as plain PyTorch on the CPU (`physics/step_kernel.py`)
 - `envs/`     stepping-stone envs, terrain, curriculum state, `VecEnv`
 - `agents/`   policy/value networks, Gaussian policy, rollout collection
+- `parallel/` the env fleet sharded over torch.distributed ranks, one
+              process per GPU, the learner replicated
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no GPU present they raise rather than fall back.

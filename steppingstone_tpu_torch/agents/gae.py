@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, global_mean_std
+
 
 def compute_gae(
     rewards: torch.Tensor,    # (T, N)
@@ -32,7 +34,9 @@ def compute_gae(
     return returns, returns - values[:-1]
 
 
-def normalize_advantages(adv: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def normalize_advantages(adv: torch.Tensor, eps: float = 1e-5, mesh: Mesh = SINGLE) -> torch.Tensor:
     """Global mean/std normalization (reference `ppo.py:41-42`), with the
-    population std as jnp.std takes it."""
-    return (adv - adv.mean()) / (adv.std(unbiased=False) + eps)
+    population std as jnp.std takes it, over every rank's rows of `mesh`:
+    the mean first, then the squared deviations from it (two passes)."""
+    mean, std = global_mean_std(mesh, adv)
+    return (adv - mean) / (std + eps)

@@ -10,6 +10,12 @@ trust guard. The optimizer is the JAX package's optax chain
 parameters so that its arithmetic is optax's: the clip divides by the
 global norm itself (torch.nn.utils.clip_grad_norm_ adds 1e-6), and when
 the KL guard fires the step size is 0 but the Adam moments still advance.
+
+Sharded over the ranks of a mesh (parallel/mesh.py) the learner is
+replicated and the minibatches stay global: every rank draws the same
+permutations, takes the rows it holds, divides its sums by the global
+counts and all-reduces the flat gradient, so each step is the
+single-process step.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from steppingstone_tpu_torch.agents import distributions as dist
 from steppingstone_tpu_torch.agents.mirror import MirrorSpec, mirror_minibatch
 from steppingstone_tpu_torch.agents.networks import (
     ActorCritic, clamped_logstd, params_from_jax, project_logstd)
+from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, all_reduce_sum
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 
@@ -88,47 +95,66 @@ def adam_state_from_jax(opt_state, policy: ActorCritic) -> AdamState:
                      mu=flat(adam.mu), nu=flat(adam.nu))
 
 
-def _losses(policy: ActorCritic, cfg: PPOConfig, mb: dict):
+def _losses(policy: ActorCritic, cfg: PPOConfig, mb: dict, m_global: int):
+    """The losses of a minibatch of `m_global` rows in all, of which `mb`
+    holds this rank's (mirrored with `cfg.mirror`): each mean is this
+    rank's sum over the global count, so the ranks' terms add up to the
+    global mean."""
     mean = policy.action_mean(mb["obs"])
     logstd = clamped_logstd(policy)
     values = policy.ensemble_values(mb["obs"])                   # (B, E)
     log_probs = dist.log_prob(mean, logstd, mb["actions"])       # (B, 1)
-    entropy = torch.mean(dist.entropy(logstd.expand_as(mean)))
+    # the same on every row: the mean over rows is the entropy of logstd
+    entropy = dist.entropy(logstd)
     # with mirror augmentation the second half are mirrored rows carrying
     # the original rows' log-probs, so only the first half measures drift
     n_orig = log_probs.shape[0] // 2 if cfg.mirror is not None else log_probs.shape[0]
-    approx_kl = torch.mean(mb["log_probs"][:n_orig] - log_probs[:n_orig])
+    rows = 2 * m_global if cfg.mirror is not None else m_global
+    approx_kl = torch.sum(mb["log_probs"][:n_orig] - log_probs[:n_orig]) / m_global
     ratio = torch.exp(log_probs - mb["log_probs"])
     surr1 = ratio * mb["adv"]
     surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * mb["adv"]
-    action_loss = -torch.mean(torch.minimum(surr1, surr2))
-    clip_frac = torch.mean((torch.abs(ratio - 1.0) > cfg.clip_param).to(torch.float32))
+    action_loss = -torch.sum(torch.minimum(surr1, surr2)) / rows
+    clip_frac = torch.sum((torch.abs(ratio - 1.0) > cfg.clip_param).to(torch.float32)) / rows
     # value loss over the ensemble against the shared target
     if cfg.use_clipped_value_loss:
         v_clip = mb["values"] + torch.clamp(values - mb["values"], -cfg.clip_param,
                                             cfg.clip_param)
         vl = torch.square(values - mb["returns"])
         vl_c = torch.square(v_clip - mb["returns"])
-        value_loss = 0.5 * torch.mean(torch.maximum(vl, vl_c))
+        value_loss = 0.5 * torch.sum(torch.maximum(vl, vl_c)) / (rows * values.shape[1])
     else:
-        value_loss = 0.5 * torch.mean(torch.square(mb["returns"] - values))
+        value_loss = 0.5 * torch.sum(torch.square(mb["returns"] - values)) / (
+            rows * values.shape[1])
     return action_loss, value_loss, entropy, clip_frac, approx_kl
 
 
 def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOConfig,
-                    mb: dict, lr: torch.Tensor, value_only: bool):
-    """One optimizer step on one minibatch; updates `policy` in place and
-    returns (new AdamState, PPOMetrics of this step)."""
+                    mb: dict, lr: torch.Tensor, value_only: bool, mesh: Mesh, m_global: int):
+    """One optimizer step on one minibatch of `m_global` rows, `mb` this
+    rank's; updates `policy` in place and returns (new AdamState,
+    PPOMetrics of this step). Over several ranks one all-reduce sums the
+    flat gradient and the loss terms, so every rank clips, guards and
+    steps on the global values and stays identical."""
     if cfg.mirror is not None:
         mb = mirror_minibatch(cfg.mirror, mb)
-    action_loss, value_loss, entropy, clip_frac, approx_kl = _losses(policy, cfg, mb)
-    if value_only:
-        total = value_loss * cfg.value_loss_coef
-    else:
-        total = value_loss * cfg.value_loss_coef + action_loss - entropy * cfg.entropy_coef
+    action_loss, value_loss, entropy, clip_frac, approx_kl = _losses(policy, cfg, mb, m_global)
+    total = value_loss * cfg.value_loss_coef
+    if not value_only:
+        total = total + action_loss
+        if mesh.rank == 0:
+            # the entropy depends on no row: it enters the global loss once
+            total = total - entropy * cfg.entropy_coef
     grads = torch.autograd.grad(total, params, allow_unused=True)
     g = torch.cat([(torch.zeros_like(p) if gr is None else gr).reshape(-1)
                    for p, gr in zip(params, grads)])
+    value_loss, action_loss, clip_frac, approx_kl = (
+        value_loss.detach(), action_loss.detach(), clip_frac, approx_kl.detach())
+    if mesh.distributed:
+        terms = torch.stack([value_loss, action_loss, clip_frac, approx_kl])
+        summed = all_reduce_sum(mesh, torch.cat([g, terms]), kind="gradient")
+        g = summed[:-4]
+        value_loss, action_loss, clip_frac, approx_kl = summed[-4:]
     gnorm = torch.sqrt(torch.sum(g * g))
     # optax.clip_by_global_norm
     g = torch.where(gnorm < cfg.max_grad_norm, g, (g / gnorm) * cfg.max_grad_norm)
@@ -141,30 +167,53 @@ def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOC
     step_lr = lr
     if cfg.kl_cutoff > 0.0 and not value_only:
         # trust guard: a minibatch that drifted too far applies no update
-        step_lr = torch.where(approx_kl.detach() > cfg.kl_cutoff, torch.zeros_like(lr), lr)
+        step_lr = torch.where(approx_kl > cfg.kl_cutoff, torch.zeros_like(lr), lr)
     with torch.no_grad():
         flat = torch.cat([p.reshape(-1) for p in params]) - step_lr * update
         for p, x in zip(params, flat.split([p.numel() for p in params])):
             p.copy_(x.view_as(p))
     project_logstd(policy)
-    metrics = PPOMetrics(value_loss.detach(), action_loss.detach(), entropy.detach(),
-                         gnorm, clip_frac, approx_kl.detach())
+    metrics = PPOMetrics(value_loss, action_loss, entropy.detach(), gnorm, clip_frac, approx_kl)
     return AdamState(count, mu, nu), metrics
+
+
+def local_minibatches(mesh: Mesh, rows: torch.Tensor, num_mini_batch: int,
+                      num_envs: int) -> tuple:
+    """This rank's rows of each of the `num_mini_batch` equal minibatches
+    of `rows`, one epoch's global row order over the flat (T, world x
+    num_envs) batch (Trainer.rollout's flattening, env fastest): a global
+    row (t, n) is held by rank n // num_envs as its local row t x num_envs
+    + n mod num_envs. The order within a minibatch is kept; a rank may hold
+    none of a minibatch's rows. One host read of the order per epoch."""
+    order = rows.cpu().numpy()
+    n_glob = num_envs * mesh.world
+    t, n = np.divmod(order, n_glob)
+    mine = n // num_envs == mesh.rank
+    local = torch.as_tensor(t[mine] * num_envs + n[mine] - mesh.rank * num_envs,
+                            device=rows.device)
+    counts = mine.reshape(num_mini_batch, -1).sum(axis=1)
+    return local.split(counts.tolist())
 
 
 def ppo_update(policy: ActorCritic, opt_state: AdamState, cfg: PPOConfig, batch: dict, lr,
                value_only: bool = False, perms: torch.Tensor | None = None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, mesh: Mesh = SINGLE,
+               num_envs: int | None = None):
     """`ppo_epoch` epochs of shuffled minibatch steps over `batch`, a dict of
     (B, .) tensors: obs, actions, log_probs (B, 1), values (B, 1), returns
-    (B, 1), adv (B, 1). `perms` (ppo_epoch, used) holds each epoch's row
-    order (used = B // num_mini_batch * num_mini_batch); when None it is
-    drawn from `generator`. Updates `policy` in place and returns
-    (AdamState, PPOMetrics averaged over all steps)."""
-    B = batch["obs"].shape[0]
+    (B, 1), adv (B, 1). Over the ranks of `mesh` the batch is this rank's
+    rows of a global batch of world x B rows, flat over (T, world x
+    `num_envs`), and the minibatches are global. `perms` (ppo_epoch, used)
+    holds each epoch's global row order (used = global batch //
+    num_mini_batch * num_mini_batch); when None it is drawn from
+    `generator`, seeded alike on every rank. Updates `policy` in place and
+    returns (AdamState, PPOMetrics averaged over all steps)."""
+    B = batch["obs"].shape[0] * mesh.world
     mbs = B // cfg.num_mini_batch
     used = mbs * cfg.num_mini_batch
     dev = batch["obs"].device
+    if mesh.world > 1 and num_envs is None:
+        raise ValueError("a sharded ppo_update needs num_envs, this rank's envs")
     if perms is None:
         perms = torch.stack([torch.randperm(B, generator=generator, device=dev)[:used]
                              for _ in range(cfg.ppo_epoch)])
@@ -172,8 +221,13 @@ def ppo_update(policy: ActorCritic, opt_state: AdamState, cfg: PPOConfig, batch:
     params = list(policy.parameters())
     history = []
     for epoch in range(cfg.ppo_epoch):
-        for rows in perms[epoch].view(cfg.num_mini_batch, mbs):
+        if mesh.world == 1:
+            minibatches = perms[epoch].view(cfg.num_mini_batch, mbs)
+        else:
+            minibatches = local_minibatches(mesh, perms[epoch], cfg.num_mini_batch, num_envs)
+        for rows in minibatches:
             mb = {k: v[rows] for k, v in batch.items()}
-            opt_state, m = _minibatch_step(policy, params, opt_state, cfg, mb, lr, value_only)
+            opt_state, m = _minibatch_step(policy, params, opt_state, cfg, mb, lr, value_only,
+                                           mesh, mbs)
             history.append(m)
     return opt_state, PPOMetrics(*(torch.stack(x).mean() for x in zip(*history)))

@@ -69,13 +69,21 @@ def collect_rollout(venv, policy: ActorCritic, env_state, obs, stats: EpisodeSta
     """Run T control steps. Returns
     (env_state, last_obs, stats, Transition stacked over T, aux).
 
-    Randomness comes from `venv.generator`; `action_noise` (T, N, A) and
-    `env_draws` (a length-T sequence of EnvStepDraws) replace its draws."""
+    Randomness comes from `venv.generator`, drawn at the global batch of
+    `venv.mesh` and cut to this rank's rows; `action_noise` (T, N, A) and
+    `env_draws` (a length-T sequence of EnvStepDraws), this rank's rows,
+    replace its draws."""
+    mesh = venv.mesh
     rows = []
     for t in range(num_steps):
-        action, log_p = policy_action(
-            policy, obs, deterministic, venv.generator,
-            None if action_noise is None else action_noise[t])
+        if action_noise is not None:
+            noise = action_noise[t]
+        elif deterministic:
+            noise = None
+        else:
+            noise = mesh.local(torch.randn((mesh.world * obs.shape[0], venv.action_dim),
+                                           generator=venv.generator, device=obs.device))
+        action, log_p = policy_action(policy, obs, deterministic, venv.generator, noise)
         value = policy.value(obs)
         env_state, out = venv.step(env_state, action,
                                    None if env_draws is None else env_draws[t])

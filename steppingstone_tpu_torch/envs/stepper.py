@@ -40,6 +40,7 @@ import torch
 from steppingstone_tpu_torch.core import quaternion as qt
 from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import terrain as terr
+from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
 from steppingstone_tpu_torch.physics import engine
 from steppingstone_tpu_torch.physics import kinematics as km
 from steppingstone_tpu_torch.physics.contact import ContactParams
@@ -349,18 +350,22 @@ class StepperEnv:
         return terr.R_SAMPLES
 
     # -- randomness ---------------------------------------------------------
-    def draw_reset(self, cur: terr.CurriculumState, generator=None) -> ResetDraws:
-        B = cur.level.shape[0]
+    def draw_reset(self, cur: terr.CurriculumState, generator=None,
+                   mesh: Mesh = SINGLE) -> ResetDraws:
+        """Reset draws for the envs of `cur`: with `mesh`, this rank's rows
+        of draws made at the global batch."""
+        B = mesh.world * cur.level.shape[0]
         return ResetDraws(
-            stones=terr.draw_stones(cur, self.cfg.n_stones - 2, generator),
-            noise=torch.randn((B, 2 * self.cfg.model.njoints + 3), generator=generator,
-                              device=self.device),
-            mirror=torch.rand((B,), generator=generator, device=self.device) < 0.5,
+            stones=terr.draw_stones(cur, self.cfg.n_stones - 2, generator, mesh),
+            noise=mesh.local(torch.randn((B, 2 * self.cfg.model.njoints + 3),
+                                         generator=generator, device=self.device)),
+            mirror=mesh.local(torch.rand((B,), generator=generator, device=self.device)) < 0.5,
         )
 
-    def draw_step(self, cur: terr.CurriculumState, generator=None) -> EnvStepDraws:
-        return EnvStepDraws(resample=terr.draw_stones(cur, 1, generator),
-                            reset=self.draw_reset(cur, generator))
+    def draw_step(self, cur: terr.CurriculumState, generator=None,
+                  mesh: Mesh = SINGLE) -> EnvStepDraws:
+        return EnvStepDraws(resample=terr.draw_stones(cur, 1, generator, mesh),
+                            reset=self.draw_reset(cur, generator, mesh))
 
     # -- reset / step -------------------------------------------------------
     def reset(self, cur: terr.CurriculumState, mirror_enabled=None, generator=None,

@@ -7,8 +7,9 @@ placing the stone lower. An 11 x 11 (yaw x pitch) grid drives curriculum
 sampling; discrete levels 0..5 widen the uniform ranges.
 
 Batched over envs (leading axis B). Every sampler takes its random draws
-as a `StoneDraws`; `draw_stones` makes them from a `torch.Generator`, and
-tests pass the JAX package's draws instead.
+as a `StoneDraws`; `draw_stones` makes them from a `torch.Generator` (for a
+shard of the fleet, its rows of the whole fleet's draws), and tests pass
+the JAX package's draws instead.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
 
 N_LEVELS = 6
 GRID = 11
@@ -78,16 +81,24 @@ def specialist_band_prob(k: int, device="cpu") -> torch.Tensor:
     return torch.as_tensor(sel / np.sum(sel, dtype=np.float32), device=device)
 
 
-def draw_stones(cur: CurriculumState, k: int, generator: torch.Generator | None = None) -> StoneDraws:
-    """Fresh draws for k placements per env from `generator`."""
+def draw_stones(cur: CurriculumState, k: int, generator: torch.Generator | None = None,
+                mesh: Mesh = SINGLE) -> StoneDraws:
+    """Fresh draws for k placements per env from `generator`, made at the
+    global batch of `mesh` (world x the B envs of `cur`) and cut to this
+    rank's rows, so a shard draws its rows of the single-process draws.
+    The grid cell is one uniform per placement, turned into a cell by the
+    env's own cumulative `sample_prob` (the first cell whose cumulative
+    probability exceeds u x the total)."""
     B, dev = cur.level.shape[0], cur.level.device
 
     def rand(*shape):
-        return torch.rand((B, k) + shape, generator=generator, device=dev)
+        return mesh.local(torch.rand((mesh.world * B, k) + shape, generator=generator,
+                                     device=dev))
 
-    cat = torch.multinomial(cur.sample_prob.reshape(B, -1), k, replacement=True,
-                            generator=generator)
-    return StoneDraws(u=2.0 * rand(4) - 1.0, r_u=rand(), cat=cat, r_g=rand())
+    cdf = torch.cumsum(cur.sample_prob.reshape(B, -1), dim=1)
+    cat = torch.searchsorted(cdf, rand() * cdf[:, -1:], right=True)
+    return StoneDraws(u=2.0 * rand(4) - 1.0, r_u=rand(), cat=torch.clamp(cat, max=GRID * GRID - 1),
+                      r_g=rand())
 
 
 def _uniform(unit: torch.Tensor, lo, hi) -> torch.Tensor:

@@ -24,6 +24,8 @@ import tempfile
 
 import torch
 
+from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, barrier, broadcast_object
+
 
 def to_host(tree):
     """A copy of `tree` with every tensor detached and copied to the host
@@ -67,15 +69,25 @@ def _rebuild(template, saved, where: str):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    """Snapshots under `directory`. Over the ranks of `mesh` only rank 0
+    writes (the training loop hands it the gathered full-fleet snapshot)
+    and reads: `exists` and `restore` are collectives that wait at a
+    barrier for every rank, so that none reads before rank 0 has written,
+    and hand rank 0's answer to all (no rank needs the files)."""
+
+    def __init__(self, directory: str, mesh: Mesh = SINGLE):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, tag: str) -> str:
         return os.path.join(self.directory, f"{tag}.pt")
 
     def save(self, tag: str, state) -> None:
-        """Save a snapshot under `tag` (e.g. 'latest', 'best', '10000000')."""
+        """Save a snapshot under `tag` (e.g. 'latest', 'best', '10000000');
+        a no-op on every rank but 0."""
+        if self.mesh.rank != 0:
+            return
         host = to_host(state)
         fd, tmp = tempfile.mkstemp(suffix=".pt.tmp", dir=self.directory)
         os.close(fd)
@@ -95,7 +107,9 @@ class CheckpointManager:
 
     def restore(self, tag: str):
         """The saved tree, on the host (NamedTuples as dicts)."""
-        return self.read(self.path(tag))
+        barrier(self.mesh)
+        return broadcast_object(self.mesh, self.read(self.path(tag))
+                                if self.mesh.rank == 0 else None)
 
     def restore_like(self, tag: str, template):
         """The snapshot under `tag` in the structure of `template`, tensors
@@ -104,7 +118,9 @@ class CheckpointManager:
         return _rebuild(template, self.restore(tag), self.path(tag))
 
     def exists(self, tag: str) -> bool:
-        return os.path.isfile(self.path(tag))
+        barrier(self.mesh)
+        return broadcast_object(self.mesh, os.path.isfile(self.path(tag))
+                                if self.mesh.rank == 0 else None)
 
     def tags(self) -> list:
         return sorted(f[:-3] for f in os.listdir(self.directory) if f.endswith(".pt"))

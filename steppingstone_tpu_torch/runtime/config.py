@@ -19,6 +19,8 @@ import subprocess
 import sys
 from typing import Optional
 
+from steppingstone_tpu_torch.parallel.mesh import make_mesh
+
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -135,8 +137,8 @@ class TrainConfig:
     kl_cutoff: float = 0.0
 
     # extras of the JAX package (no reference analog), kept so both read
-    # the same keys; the port runs on one device, so mesh_devices is inert
-    mesh_devices: int = 0               # 0 = all visible devices
+    # the same keys
+    mesh_devices: int = 0               # ranks the env fleet shards over (0 = all)
     checkpoint_async: bool = True       # inert: the port writes checkpoints in line
     checkpoint_interval: int = 10       # save 'latest' every N updates
     episode_log: bool = False           # Monitor-style episodes.csv
@@ -156,7 +158,8 @@ class TrainConfig:
         return int(self.num_frames) // self.num_steps // self.num_processes
 
     def validate(self):
-        """Raise ValueError on an inconsistent configuration."""
+        """Raise ValueError on an inconsistent configuration, the ranks of
+        the default process group included (parallel/mesh.py)."""
         if self.episode_steps % self.num_processes != 0:
             raise ValueError(
                 "episode_steps must divide evenly into num_processes "
@@ -166,6 +169,11 @@ class TrainConfig:
             raise ValueError(
                 f"num_steps={self.num_steps} and num_updates={self.num_updates} "
                 "must both be positive"
+            )
+        world = make_mesh(self.mesh_devices).world  # raises where the ranks contradict it
+        if self.num_processes % world != 0:
+            raise ValueError(
+                f"num_processes={self.num_processes} must divide over {world} ranks"
             )
         if self.advance_on_test and not (self.test_curriculum and self.num_tests > 0):
             raise ValueError(
@@ -292,15 +300,18 @@ def _git_info():
         return {}
 
 
-def init_experiment(cfg: TrainConfig) -> str:
-    """Create the experiment dir and write configs.json / run.json
-    (reference `sacred_utils.py:42-55`). Returns the experiment dir.
+def init_experiment(cfg: TrainConfig, write: bool = True) -> str:
+    """Create the experiment dir and (with `write`, on one rank of several)
+    write configs.json / run.json (reference `sacred_utils.py:42-55`).
+    Returns the experiment dir.
 
     Replicate seeding follows the reference: seed += (replicate_num - 1) *
     num_processes (`sacred_utils.py:34`).
     """
     cfg.seed = cfg.seed + (cfg.replicate_num - 1) * cfg.num_processes
     os.makedirs(cfg.experiment_dir, exist_ok=True)
+    if not write:
+        return cfg.experiment_dir
     # stamp effective/derived values and the keys the enabled strategies
     # ignore, so the snapshot is self-describing
     snapshot = dataclasses.asdict(cfg)

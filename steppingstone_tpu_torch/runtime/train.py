@@ -19,8 +19,18 @@ full resume, episodes.csv, progress.csv, the sampling-probability and
 value-grid pickles (and their heatmap), and a torch.profiler trace of
 updates 10-13.
 
+Over the ranks of a torch.distributed job (parallel/mesh.py) the env
+fleet is sharded and the learner replicated: each rank steps
+`num_processes // world` envs, the advantages are normalized and the
+minibatch gradients summed over all ranks, and every host read of
+per-env values (episode stats, episodes.csv, the test fleet's returns,
+checkpoints) gathers the whole fleet first, so every rank decides alike
+and the run computes what one process computes. Only rank 0 writes
+files and the console log.
+
 Run:  python -m steppingstone_tpu_torch.runtime.train [with] k=v ...
-(on the card; `main(argv, device="cpu")` runs it on the CPU).
+(on the card; `main(argv, device="cpu")` runs it on the CPU), or on N
+GPUs: torchrun --nproc_per_node=N -m steppingstone_tpu_torch.runtime.train ...
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from steppingstone_tpu_torch.agents.gae import compute_gae, normalize_advantages
 from steppingstone_tpu_torch.agents.mirror import MirrorSpec
@@ -44,6 +55,7 @@ from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.vector import VecEnv
+from steppingstone_tpu_torch.parallel import mesh as pmesh
 from steppingstone_tpu_torch.runtime import curriculum as curr
 from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
 from steppingstone_tpu_torch.runtime.config import TrainConfig, init_experiment, parse_cli
@@ -55,7 +67,8 @@ from steppingstone_tpu_torch.runtime.torch_import import REFERENCE_MODELS
 
 class IterationDraws(NamedTuple):
     """Random draws of one training iteration, each None to draw it from
-    the trainer's generators."""
+    the trainer's generators. Over several ranks the action noise and env
+    draws are this rank's env rows, the permutations global."""
 
     action_noise: torch.Tensor | None = None  # (T, N, A) standard normals
     env_draws: list | None = None             # T EnvStepDraws
@@ -63,24 +76,34 @@ class IterationDraws(NamedTuple):
 
 
 class Trainer:
-    """Wires config -> env fleet (and test fleet) -> networks -> PPO on one
-    device (`None` means the card). Its generators: the fleet's (`venv`,
-    seeded cfg.seed; env draws and action noise), the test fleet's
-    (cfg.seed + 1), the minibatch permutations' (cfg.seed) and, with a
-    value-based curriculum, the value grid's eval fleet's (cfg.seed + 2)."""
+    """Wires config -> mesh -> env fleet (and test fleet) -> networks -> PPO
+    on one device (`None` means the card; under a process group
+    cuda:LOCAL_RANK). Its generators, seeded alike on every rank: the
+    fleet's (`venv`, seeded cfg.seed; env draws and action noise), the
+    test fleet's (cfg.seed + 1), the minibatch permutations' (cfg.seed)
+    and, with a value-based curriculum, the value grid's eval fleet's
+    (cfg.seed + 2)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
         cfg.validate()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(pmesh.rank_device(device))
+        # the mesh first: the fleet shards over its ranks
+        self.mesh = pmesh.make_mesh(cfg.mesh_devices)
         env_kw = {"plank_class": cfg.plank_class} if cfg.plank_class else {}
         if cfg.stall_timeout >= 0:
             env_kw["stall_timeout"] = cfg.stall_timeout
         self.env = make_env(cfg.env_name, device=self.device, **env_kw)
-        self.venv = VecEnv(self.env, cfg.num_processes, device=self.device, seed=cfg.seed)
-        self.test_venv = (VecEnv(self.env, cfg.num_tests, device=self.device, seed=cfg.seed + 1)
+        self.venv = VecEnv(self.env, cfg.num_processes, device=self.device, seed=cfg.seed,
+                           mesh=self.mesh)
+        # the test fleet is sharded when it divides over the ranks, else it
+        # runs whole on every rank
+        test_mesh = self.mesh if cfg.num_tests % self.mesh.world == 0 else pmesh.SINGLE
+        self.test_venv = (VecEnv(self.env, cfg.num_tests, device=self.device, seed=cfg.seed + 1,
+                                 mesh=test_mesh)
                           if cfg.num_tests > 0 else None)
-        # the adaptive and threshold strategies' value grid (one eval fleet)
+        # the adaptive and threshold strategies' value grid (one eval fleet,
+        # whole on every rank)
         self.value_grid = (curr.make_value_grid_fn(self.env, seed=cfg.seed + 2)
                            if cfg.use_adaptive_sampling or cfg.use_threshold_sampling else None)
         self.ppo_cfg = PPOConfig(
@@ -146,7 +169,7 @@ class Trainer:
         bad_masks = torch.cat([ones, traj.bad_masks], dim=0)
         returns, adv = compute_gae(traj.rewards, values, masks, bad_masks, cfg.gamma,
                                    cfg.gae_lambda)
-        adv = normalize_advantages(adv)
+        adv = normalize_advantages(adv, mesh=self.mesh)
         T, N = traj.rewards.shape
         flat = lambda x: x.reshape(T * N, *x.shape[2:])
         batch = dict(obs=flat(traj.obs), actions=flat(traj.actions),
@@ -156,11 +179,13 @@ class Trainer:
 
     def update(self, policy: ActorCritic, opt_state, batch: dict, lr, value_only: bool = False,
                perms: torch.Tensor | None = None):
-        """ppo_update over `batch`; value-only updates run at 10x lr (the
-        reference's value_optimizer). Returns (opt_state, PPOMetrics)."""
+        """ppo_update over `batch` (this rank's rows); value-only updates run
+        at 10x lr (the reference's value_optimizer). Returns (opt_state,
+        PPOMetrics)."""
         return ppo_update(policy, opt_state, self.ppo_cfg, batch,
                           10.0 * lr if value_only else lr, value_only=value_only,
-                          perms=perms, generator=self.generator)
+                          perms=perms, generator=self.generator, mesh=self.mesh,
+                          num_envs=self.venv.num_envs)
 
     def train_iteration(self, policy: ActorCritic, opt_state, env_state, obs, stats, lr,
                         value_only: bool = False, draws: IterationDraws = IterationDraws()):
@@ -189,10 +214,17 @@ class Trainer:
         return evaluate(self.test_venv, policy, test_state, test_obs,
                         self.env.cfg.max_episode_steps)
 
+    def replicate_learner(self, *trees) -> None:
+        """Rank 0's learner on every rank: the policy's parameters and the
+        optimizer states, overwritten in place."""
+        pmesh.replicate_tree(self.mesh, [t.state_dict() if isinstance(t, ActorCritic) else t
+                                         for t in trees])
+
     def train(self) -> ActorCritic:
         """The training run `cfg` describes; returns the trained policy."""
         cfg = self.cfg
-        exp_dir = init_experiment(cfg)
+        rank0 = self.mesh.rank == 0
+        exp_dir = init_experiment(cfg, write=rank0)
         # the replicate offset moved cfg.seed: every generator starts from it
         self.venv.generator.manual_seed(cfg.seed)
         self.generator.manual_seed(cfg.seed)
@@ -214,7 +246,8 @@ class Trainer:
             test_state, test_obs = self.test_venv.reset()
             if cfg.use_phase_mirror:
                 test_state = self.test_venv.set_mirror(test_state, True)
-        stats = EpisodeStats.init(cfg.num_processes, self.device)
+        stats = EpisodeStats.init(self.venv.num_envs, self.device)
+        self.replicate_learner(policy, opt_state, value_opt_state)
 
         # ---- curriculum strategies -----------------------------------
         fixed = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
@@ -243,9 +276,10 @@ class Trainer:
                                             value_grid=self.value_grid)
                      if cfg.use_threshold_sampling else None)
 
-        ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
-        logger = ConsoleCSVLogger(exp_dir, console_log_interval=cfg.log_interval,
-                                  resume=cfg.resume)
+        ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"), self.mesh)
+        logger = (ConsoleCSVLogger(exp_dir, console_log_interval=cfg.log_interval,
+                                   resume=cfg.resume) if rank0 else None)
+        gather = lambda venv, tree, dim=0: pmesh.gather_env_tree(venv.mesh, tree, dim)
         # the value-based strategies' grids, from this call's updates only
         # (the JAX package's behaviour: a resumed run's pickles hold the
         # rounds after the resume)
@@ -262,7 +296,8 @@ class Trainer:
 
         # ---- full-resume snapshot: params, both optimizers, env and test
         # fleet state, episode stats, every generator, the curricula and
-        # the counters, so a resumed run continues the same trajectory
+        # the counters, so a resumed run continues the same trajectory; the
+        # fleets gathered whole (a collective), whatever the ranks
         def make_snapshot(update, frames):
             tr = np.full(max(cfg.num_tests, 1), np.nan, np.float32)
             tr[: len(test_rets)] = np.asarray(test_rets, np.float32)[: len(tr)]
@@ -270,9 +305,9 @@ class Trainer:
                 "policy": policy.state_dict(),
                 "opt_state": opt_state,
                 "value_opt_state": value_opt_state,
-                "env_state": env_state,
-                "obs": obs,
-                "stats": stats,
+                "env_state": gather(self.venv, env_state),
+                "obs": gather(self.venv, obs),
+                "stats": gather(self.venv, stats),
                 "generators": {k: g.get_state() for k, g in self._generators().items()},
                 "update": update,
                 "frames": frames,
@@ -291,15 +326,17 @@ class Trainer:
                 },
             }
             if self.test_venv is not None:
-                snap["test_state"] = test_state
-                snap["test_obs"] = test_obs
+                snap["test_state"] = gather(self.test_venv, test_state)
+                snap["test_obs"] = gather(self.test_venv, test_obs)
             return snap
 
         if cfg.resume and ckpt.exists("latest"):
             snap = ckpt.restore_like("latest", make_snapshot(0, 0))
             policy.load_state_dict(snap["policy"])
             opt_state, value_opt_state = snap["opt_state"], snap["value_opt_state"]
-            env_state, obs, stats = snap["env_state"], snap["obs"], snap["stats"]
+            # each rank takes its slice of the fleets
+            env_state, obs, stats = pmesh.shard_env_tree(
+                self.venv.mesh, (snap["env_state"], snap["obs"], snap["stats"]))
             for k, g in self._generators().items():
                 g.set_state(snap["generators"][k])
             start_update = int(snap["update"])
@@ -307,7 +344,8 @@ class Trainer:
             tr = snap["test_rets"].numpy()
             test_rets = tr[~np.isnan(tr)]
             if self.test_venv is not None:
-                test_state, test_obs = snap["test_state"], snap["test_obs"]
+                test_state, test_obs = pmesh.shard_env_tree(
+                    self.test_venv.mesh, (snap["test_state"], snap["test_obs"]))
             c = snap["curriculum"]
             if fixed:
                 fixed.level = int(c["fixed_level"])
@@ -325,6 +363,7 @@ class Trainer:
                 threshold.uniform_counter = int(c["thr_uniform_counter"])
                 threshold.uniform_sampling = bool(c["thr_uniform_sampling"])
             next_checkpoint = ((int(snap["frames"]) // int(cfg.save_every)) + 1) * cfg.save_every
+            self.replicate_learner(policy, opt_state, value_opt_state)
             print(f"resumed from update {start_update}", flush=True)
         self.start_update = start_update
         self.update_times = []
@@ -341,7 +380,8 @@ class Trainer:
             if prof is not None and j == 13:
                 prof.stop()
                 os.makedirs(cfg.profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+                name = "trace.json" if self.mesh.world == 1 else f"trace_rank{self.mesh.rank}.json"
+                prof.export_chrome_trace(os.path.join(cfg.profile_dir, name))
                 prof = None
                 print(f"profiler trace written to {cfg.profile_dir}", flush=True)
 
@@ -409,10 +449,9 @@ class Trainer:
 
             # ---- Monitor-style per-episode log (envs_utils.py:71-194) -------
             if cfg.episode_log:
-                done = aux["ep_done"].cpu().numpy()
-                if done.any():
-                    ep_ret = aux["ep_return"].cpu().numpy()
-                    ep_len = aux["ep_len"].cpu().numpy()
+                done, ep_ret, ep_len = (x.cpu().numpy() for x in gather(
+                    self.venv, (aux["ep_done"], aux["ep_return"], aux["ep_len"]), 1))
+                if done.any() and rank0:
                     t_now = time.time() - start
                     with open(os.path.join(exp_dir, "episodes.csv"), "a") as f:
                         if f.tell() == 0:
@@ -424,6 +463,7 @@ class Trainer:
             test_fresh = False
             if cfg.num_tests > 0 and j % cfg.test_interval == 0:
                 test_state, test_obs, test_stats = self._test_eval(policy, test_state, test_obs)
+                test_stats = gather(self.test_venv, test_stats)
                 tvalid = test_stats.valid.cpu().numpy()
                 test_rets = test_stats.ret.cpu().numpy()[tvalid]
                 test_fresh = True
@@ -432,8 +472,9 @@ class Trainer:
             t3 = time.perf_counter()
 
             # ---- episode stats to host ---------------------------------
-            valid = stats.valid.cpu().numpy()
-            rets = stats.ret.cpu().numpy()[valid]
+            full = gather(self.venv, stats)
+            valid = full.valid.cpu().numpy()
+            rets = full.ret.cpu().numpy()[valid]
             mean_rew = float(rets.mean()) if rets.size else 0.0
 
             # ---- fixed curriculum advance --------------------------------
@@ -508,20 +549,20 @@ class Trainer:
             if is_best:
                 ckpt.save("best", snap)
 
-            if cfg.save_sampling_prob and sampling_prob_log:
+            if cfg.save_sampling_prob and sampling_prob_log and rank0:
                 with open(os.path.join(exp_dir, f"{cfg.env_name}_sampling_prob.pkl"), "wb") as fp:
                     pickle.dump(sampling_prob_log, fp)
                 with open(os.path.join(exp_dir, f"{cfg.env_name}_value_grid.pkl"), "wb") as fp:
                     pickle.dump(value_grid_log, fp)
             # the sampling-probability heatmap (headless analog of the
             # reference's live `plot_prob` window)
-            if cfg.plot_prob and sampling_prob_log:
+            if cfg.plot_prob and sampling_prob_log and rank0:
                 from steppingstone_tpu_torch.viz.sampling_prob import render_grid
 
                 render_grid(sampling_prob_log[-1], os.path.join(exp_dir, "sampling_prob.png"))
 
             # ---- logging (reference train.py:564-578) -----------------------
-            if rets.size > 1:
+            if rets.size > 1 and rank0:
                 elapsed = time.time() - start
                 done_frames = frame_count - start_update * cfg.num_steps * cfg.num_processes
                 logger.log_epoch({
@@ -543,15 +584,29 @@ class Trainer:
 
         if prof is not None:
             prof.stop()
-        logger.close()
+        if logger is not None:
+            logger.close()
+        # every rank returns once rank 0 has written everything
+        pmesh.barrier(self.mesh)
         return policy
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, backend=None):
     """`python -m steppingstone_tpu_torch.runtime.train [with] k=v ...`:
-    one training run on the card (`device` picks another)."""
-    cfg = parse_cli(argv)
-    Trainer(cfg, device=device).train()
+    one training run on the card (`device` picks another). Under torchrun's
+    variables each process first joins the process group (`backend`, by
+    default nccl on CUDA and gloo on the CPU) and runs rank r of the
+    sharded run on cuda:LOCAL_RANK."""
+    # the process group this call joins, it also leaves
+    owned = not dist.is_initialized() and pmesh.maybe_initialize_distributed(backend, device)
+    if dist.is_initialized():
+        print(f"distributed: process {dist.get_rank()}/{dist.get_world_size()} on "
+              f"{pmesh.rank_device(device)} ({dist.get_backend()})", flush=True)
+    try:
+        Trainer(parse_cli(argv), device=device).train()
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
