@@ -20,7 +20,8 @@ order; any failure exits non-zero and no phase's failure is caught:
    64, the round-5 runs' fleet and test fleet, K2 also at 16, the value
    grid's eval fleet, and at 512 and 32, a rank's fleet and test fleet of
    the sharded round-5 run; K1 also at 512, a rank's fleet of the dry
-   run), on states from a short rollout
+   run; K1 and K2 also at 256, the behavior evaluation's fleet), on states
+   from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
    all occur; K1 on Walker3D torques over discs, K2 on Walker3D torques
@@ -104,6 +105,17 @@ order; any failure exits non-zero and no phase's failure is caught:
      then enjoy.run_episode on the card against the CPU from the same
      draws (frames, rewards, actions, values, value grids 1e-3; contacts,
      hits, steps equal)
+   - behavior evaluation: behavior_eval.main on the card on the round-5
+     Walker3D loop's checkpoints/latest at the round-5 reports' 256 envs,
+     cut in depth from 1000 steps an entry to 100: scripts/round5_evals.sh
+     :8 with its levels cut from 0 2 5 to 0 5 and :15 with its bands cut
+     from 0 1 2 3 to 0 3 (LargePlank, exactly 200 K2 launches each), and
+     level 0 on discs (exactly 100 K1); each report with the JAX script's
+     keys (read from scripts/behavior_eval.py), every value finite, falls
+     and whole-track walks within the episodes; ms a step, one profiled
+     entry; one 8-env x 30-step LargePlank entry on the card against the
+     CPU from the same draws (integer fields equal, floats within 1e-3 or
+     one unit of the key's rounding)
    - resume is total on the card: 256 envs x 16 steps, 2 + 2 updates
      against 4 unbroken, every progress.csv column but fps within rel 1e-5 /
      abs 1e-6 (tests/test_runtime.py); a miss is traced to its source by a
@@ -160,9 +172,11 @@ DRYRUN_ENVS = 1024
 # test fleet, scripts/round5_runs.sh; K2 also the value grid's eval fleet
 # and a rank's fleet and test fleet of the sharded round-5 run); K1 at a
 # rank's fleet of the dry run
-PATH_BATCHES = {"K1": (DRYRUN_ENVS // SHARDED_RANKS,),
+# the behavior evaluation's fleet (runtime/behavior_eval.py --envs)
+BEHAVIOR_ENVS = 256
+PATH_BATCHES = {"K1": (DRYRUN_ENVS // SHARDED_RANKS, BEHAVIOR_ENVS),
                 "K2": (R5_ENVS, R5_TEST_ENVS, GRID_ENVS, R5_ENVS // SHARDED_RANKS,
-                       R5_TEST_ENVS // SHARDED_RANKS),
+                       R5_TEST_ENVS // SHARDED_RANKS, BEHAVIOR_ENVS),
                 "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
@@ -243,6 +257,23 @@ CARD_CPU_EPISODE_STEPS = 30
 # K1 and K2 are also held to their plain version, and timed, at enjoy's
 # single env
 ONE_ENV = ("K1", "K2")
+# the behavior evaluation of the round-5 reports on the round-5 Walker3D
+# loop's checkpoints (runs/r5_w3d, latest), at its 256 envs, cut in depth
+# from 1000 steps to BEHAVIOR_STEPS: scripts/round5_evals.sh:8 (levels 0 2 5
+# on LargePlank, cut to 0 5) and :15 (bands 0 1 2 3 on LargePlank, cut to
+# 0 3), each entry one K2 launch a step; and level 0 on discs, one K1 launch
+# a step. name -> (flags, variant, launches)
+BEHAVIOR_STEPS = 100
+BEHAVIOR_RUNS = {
+    "levels 0 5, LargePlank": (["--levels", "0", "5", "--plank_class", "LargePlank"], "K2",
+                               2 * BEHAVIOR_STEPS),
+    "bands 0 3, LargePlank": (["--bands", "0", "3", "--plank_class", "LargePlank"], "K2",
+                              2 * BEHAVIOR_STEPS),
+    "level 0, discs": (["--levels", "0"], "K1", BEHAVIOR_STEPS),
+}
+# the behavior evaluation on the card against the CPU: one entry on
+# LargePlank from the same draws
+BEHAVIOR_CPU_ENVS, BEHAVIOR_CPU_STEPS = 8, 30
 PROGRESS_HEADER = ["iter", "total_num_steps", "fps", "entropy", "value_loss", "action_loss",
                    "mean_rew", "median_rew", "min_rew", "max_rew", "test_mean_rew",
                    "test_median_rew", "test_min_rew", "test_max_rew"]
@@ -1608,6 +1639,145 @@ def card_vs_cpu_episode(spec_exp: str, steps: int = CARD_CPU_EPISODE_STEPS) -> d
     return got
 
 
+def behavior_keys() -> tuple:
+    """(top-level keys, {per-entry key: its rounding unit, None for an
+    integer}) of scripts/behavior_eval.py's report, read from its source
+    (this script imports no JAX): `report = {...}` and `report[label] =
+    {...}`, each value's unit from the `round(x, n)` in it."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "behavior_eval.py")
+    top, entry = None, None
+    for node in ast.walk(ast.parse(open(path).read())):
+        if not (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)):
+            continue
+        target = node.targets[0]
+        if isinstance(target, ast.Name) and target.id == "report":
+            top = {k.value for k in node.value.keys}
+        elif isinstance(target, ast.Subscript) and getattr(target.value, "id", "") == "report":
+            entry = {}
+            for k, v in zip(node.value.keys, node.value.values):
+                digits = [c.args[1].value for c in ast.walk(v) if isinstance(c, ast.Call)
+                          and getattr(c.func, "id", "") == "round"]
+                entry[k.value] = 10.0 ** -digits[0] if digits else None
+    return top, entry
+
+
+def check_behavior(what: str, report: dict, labels: list) -> None:
+    """A behavior report: the JAX script's keys, every number finite, and
+    the counts consistent (falls and whole-track walks are episodes)."""
+    top, entry = behavior_keys()
+    if set(report) != top | set(labels):
+        raise AssertionError(f"{what}: keys {sorted(report)}, expected {sorted(top)} + {labels}")
+    for label in labels:
+        e = report[label]
+        if set(e) != set(entry) or len(entry) != 15:
+            raise AssertionError(f"{what} {label}: keys {sorted(e)}, expected {sorted(entry)}")
+        if not all(isinstance(v, (int, float)) and math.isfinite(v) for v in e.values()):
+            raise AssertionError(f"{what} {label}: a value is missing or not finite: {e}")
+        done = e["episodes_completed"]
+        if not (e["falls"] <= done and e["walked_whole_track"] + e["falls_before_track_end"]
+                <= done):
+            raise AssertionError(f"{what} {label}: inconsistent counts {e}")
+
+
+def behavior_paths(w3d_exp: str) -> dict:
+    """behavior_eval.main on the card on the round-5 Walker3D loop's
+    checkpoints (BEHAVIOR_RUNS): exactly each run's launches of its variant
+    and nothing else, the report checked (check_behavior); the host's ms a
+    control step; then one entry under torch.profiler, and one LargePlank
+    entry on the card against the CPU from the same draws (integer fields
+    equal, floats within 1e-3 or one unit of the key's rounding)."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.envs import terrain as terr
+    from steppingstone_tpu_torch.envs.vector import VecEnv
+    from steppingstone_tpu_torch.physics import step_kernel
+    from steppingstone_tpu_torch.runtime import behavior_eval, enjoy
+
+    started = time.perf_counter()
+    out = {}
+    base = [w3d_exp, "--envs", str(BEHAVIOR_ENVS), "--steps", str(BEHAVIOR_STEPS),
+            "--tag", "latest"]
+    for name, (flags, variant, expected) in BEHAVIOR_RUNS.items():
+        torch.cuda.synchronize()
+        step_kernel.CONTROL_STEP.reset_counts()
+        with counting_plain() as plain, contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            report = behavior_eval.main(base + flags)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = dict(step_kernel.CONTROL_STEP.launches)
+        check_launches(f"behavior evaluation ({name})", launches, variant, expected, plain[0])
+        labels = [k for k in report if k.startswith(("level_", "band_"))]
+        check_behavior(name, report, labels)
+        out[name] = dict(launches=launches[variant], seconds=seconds,
+                         ms_per_step=1e3 * seconds / expected,
+                         report={k: report[k] for k in labels})
+    # where a step's time goes: a few steps of one LargePlank entry, after
+    # the counted runs
+    env = make_env("Walker3DStepperEnv-v0", plank_class="LargePlank")
+    state, n = enjoy.load_params(os.path.join(w3d_exp, "checkpoints", "latest"), env, 1)
+    policy = enjoy.policy_from_state(state, env, n)
+    venv = VecEnv(env, BEHAVIOR_ENVS, seed=behavior_eval.SEED)
+    cur = terr.default_curriculum(0, batch=BEHAVIOR_ENVS, device=env.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        behavior_eval.evaluate_entry(venv, policy, cur, 5)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_time(prof, wall_ms, 5)
+    out["card_vs_cpu"] = behavior_card_vs_cpu(w3d_exp)
+    out["phase_seconds"] = time.perf_counter() - started
+    print("behavior evaluation paths:", json.dumps(out), flush=True)
+    return out
+
+
+def behavior_card_vs_cpu(w3d_exp: str) -> dict:
+    """One LargePlank entry of behavior_eval.main (BEHAVIOR_CPU_ENVS x
+    BEHAVIOR_CPU_STEPS, level 0) on the card (K2) and on the CPU, from the
+    same draws, made on the CPU."""
+    import io
+
+    import torch
+
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.runtime import behavior_eval
+
+    cpu_env = make_env("Walker3DStepperEnv-v0", device="cpu", plank_class="LargePlank")
+
+    def draws(label, cur):
+        # free-running draws from one CPU generator, on the entry's device
+        g, c = torch.Generator().manual_seed(11), _to(cur, "cpu")
+        reset = cpu_env.draw_reset(c, g)
+        steps = iter([cpu_env.draw_step(c, g) for _ in range(BEHAVIOR_CPU_STEPS)])
+        dev = cur.level.device
+        return _to(reset, dev), lambda done: _to(next(steps), dev)
+
+    argv = [w3d_exp, "--envs", str(BEHAVIOR_CPU_ENVS), "--steps", str(BEHAVIOR_CPU_STEPS),
+            "--levels", "0", "--plank_class", "LargePlank"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_report = behavior_eval.main(argv, draws=draws)
+        cpu = behavior_eval.main(argv, device="cpu", draws=draws)["level_0"]
+    check_behavior("card vs CPU", card_report, ["level_0"])
+    card = card_report["level_0"]
+    if card["episodes_completed"] < 1:
+        raise AssertionError(f"card vs CPU: no episode ended inside the window: {card}")
+    for k, unit in behavior_keys()[1].items():
+        ok = (card[k] == cpu[k] if unit is None
+              else abs(card[k] - cpu[k]) <= max(1e-3, unit) + 1e-9)
+        if not ok:
+            raise AssertionError(f"card vs CPU: {k} card {card[k]}, CPU {cpu[k]}")
+    got = dict(card=card, cpu=cpu)
+    print("behavior evaluation, card vs CPU:", json.dumps(got), flush=True)
+    return got
+
+
 def resume_is_total(num_envs: int = 256, steps: int = 16) -> dict:
     """2 + 2 updates against 4 unbroken (Walker3D, fixed curriculum, no test
     fleet, as tests/test_runtime.py runs it): every progress.csv column but
@@ -1891,6 +2061,7 @@ def main() -> int:
         spec = specialist_path(runs, os.path.join(runs, "r5_w3d"))
         enjoyed = enjoy_paths(runs, spec["exp"])
         card_vs_cpu_episode(spec["exp"])
+        behavior = behavior_paths(os.path.join(runs, "r5_w3d"))
     resume_is_total()
     # the sharded path (this slice's): the dry run, NCCL at world size 1,
     # the round-5 Walker3D run over two ranks
@@ -1903,10 +2074,15 @@ def main() -> int:
     # a variant's other paths, with their launches
     other_paths = {
         "K1": {"enjoy, reference pickle, one env": enjoyed["reference"]["launches"],
+               "behavior evaluation, level 0 on discs, 256 envs":
+                   behavior["level 0, discs"]["launches"],
                "dryrun_multichip(2), each rank": dry["launches"]},
         "K2": {"round-5 Walker3D Trainer.train over two ranks, each rank":
                    [sum(r[p]["launches"] for p in ("first", "resumed")) for r in sharded["ranks"]],
                "round-5 specialist Trainer.train, warm-started": spec["launches"],
+               "behavior evaluation, LargePlank, levels 0 5 and bands 0 3, 256 envs":
+                   sum(behavior[k]["launches"] for k in ("levels 0 5, LargePlank",
+                                                         "bands 0 3, LargePlank")),
                "enjoy, LargePlank, one env": enjoyed["plank"]["launches"],
                "round-5 threshold-sampling Trainer.train (r5_thr150)":
                    thr["first"]["launches"] + thr["resumed"]["launches"],

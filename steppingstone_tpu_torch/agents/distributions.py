@@ -29,3 +29,7 @@ def log_prob(mean, logstd, actions):
 
 def entropy(logstd):
     return torch.sum(logstd + 0.5 * (LOG_2PI + 1.0), dim=-1)
+
+
+def mode(mean):
+    return mean

@@ -81,6 +81,22 @@ def to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def from_euler_zyx(yaw: torch.Tensor, pitch: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:
+    """Intrinsic Z(yaw)-Y(pitch)-X(roll) Euler angles (...,) -> quaternion (..., 4)."""
+    cz, sz = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cy, sy = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cx, sx = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    return torch.stack(
+        [
+            cz * cy * cx + sz * sy * sx,
+            cz * cy * sx - sz * sy * cx,
+            cz * sy * cx + sz * cy * sx,
+            sz * cy * cx - cz * sy * sx,
+        ],
+        dim=-1,
+    )
+
+
 def to_euler_zyx(q: torch.Tensor):
     """Quaternion -> (yaw, pitch, roll), intrinsic Z-Y-X."""
     w, x, y, z = q.unbind(-1)
@@ -96,3 +112,9 @@ def integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
     omega_q = torch.cat([torch.zeros_like(omega_world[..., :1]), omega_world], dim=-1)
     dq = 0.5 * mul(omega_q, q)
     return normalize(q + dt * dq)
+
+
+def heading(q: torch.Tensor) -> torch.Tensor:
+    """Heading (yaw) of the body x axis projected onto the ground, (...,)."""
+    fwd = rotate(q, q.new_tensor([1.0, 0.0, 0.0]))
+    return torch.atan2(fwd[..., 1], fwd[..., 0])

@@ -62,3 +62,9 @@ def force_at_point(f: torch.Tensor, p: torch.Tensor, torque: torch.Tensor | None
     if torque is not None:
         n = n + torque
     return torch.cat([n, f], dim=-1)
+
+
+def point_velocity(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Velocity of the body-fixed point p (relative to the origin) of a body
+    with spatial velocity v = [w; v_O]: v_O + w x p."""
+    return v[..., 3:] + cross(v[..., :3], p)

@@ -26,6 +26,11 @@ def _chol_columns(A: torch.Tensor) -> list:
     return cols
 
 
+def cholesky_unrolled(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of symmetric positive-definite A (..., n, n)."""
+    return torch.stack(_chol_columns(A), dim=-1)
+
+
 def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b for symmetric positive-definite A (..., n, n), b (..., n)."""
     n = A.shape[-1]

@@ -84,6 +84,23 @@ def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tens
     return target
 
 
+def pd_actuation(model: RobotModel, action: torch.Tensor, qj: torch.Tensor,
+                 qdj: torch.Tensor) -> torch.Tensor:
+    """Explicit PD control held over the substeps: tau = kp (target - q) -
+    kd qd on the actuated joints, clamped to their limits, with the target
+    of `pd_target_from_action`; returns (B, NJ). The steppers use the
+    stable PD inside each substep (`step(..., pd=...)`) instead: held
+    torques are unstable on light links."""
+    idx = tensor(model, "actuated_idx", action.device, torch.long)
+    target = pd_target_from_action(model, action)[:, idx]
+    kp = tensor(model, "kp", action.device)[idx]
+    kd = tensor(model, "kd", action.device)[idx]
+    lim = tensor(model, "torque_limit", action.device)[idx]
+    tau = action.new_zeros((action.shape[0], model.njoints))
+    tau[:, idx] = torch.clamp(kp * (target - qj[:, idx]) - kd * qdj[:, idx], -lim, lim)
+    return tau
+
+
 def pd_gains(model: RobotModel, device):
     """(kp, kd, torque limit) per joint, zero on joints the policy does not
     drive: the stable-PD gains of `_substep` and kernel K3."""

@@ -28,17 +28,28 @@ class Kin(NamedTuple):
     inertia_w: torch.Tensor  # (B, NB, 3, 3) rotational inertia about CoM, world axes
 
 
+def split_q(model: RobotModel, q: torch.Tensor):
+    """(root position (B, 3), root quaternion (B, 4), joint angles (B, NJ))."""
+    return q[:, 0:3], q[:, 3:7], q[:, 7:]
+
+
+def split_qd(model: RobotModel, qd: torch.Tensor):
+    """(root angular (B, 3), root linear (B, 3), joint velocities (B, NJ)):
+    the root's spatial velocity [w; v] split, then the joints."""
+    return qd[:, 0:3], qd[:, 3:6], qd[:, 6:]
+
+
 def forward_kinematics(model: RobotModel, q: torch.Tensor) -> Kin:
     dev = q.device
     anchor = tensor(model, "joint_anchor", dev)
     ax_local = tensor(model, "joint_axis", dev)
     # fixed parent -> joint frame rotations (URDF <origin rpy>), or None
     jrot = None if model.joint_rot is None else tensor(model, "joint_rot", dev)
-    qj = q[:, 7:]
+    root_pos, root_quat, qj = split_q(model, q)
 
-    pos = [q[:, 0:3]]
-    quat = [q[:, 3:7]]
-    axis = [torch.zeros_like(q[:, 0:3])]
+    pos = [root_pos]
+    quat = [root_quat]
+    axis = [torch.zeros_like(root_pos)]
     for i in range(1, model.nbodies):
         p = int(model.parent[i])
         pos.append(pos[p] + qt.rotate(quat[p], anchor[i]))
@@ -62,8 +73,8 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> Kin:
 def body_velocities(model: RobotModel, kin: Kin, qd: torch.Tensor) -> torch.Tensor:
     """Spatial velocities [w; v_O] of every body, origin at the root: (B, NB, 6)."""
     root = kin.pos[:, 0]
-    qdj = qd[:, 6:]
-    v = [qd[:, 0:6]]
+    omega0, v0, qdj = split_qd(model, qd)
+    v = [torch.cat([omega0, v0], dim=-1)]
     for i in range(1, model.nbodies):
         p = int(model.parent[i])
         a = kin.axis[:, i]

@@ -11,10 +11,15 @@ rebuilds them from a template snapshot and raises, naming the file and the
 field, where the layout differs. Tags the training loop writes: `latest`,
 `best`, numbered frame counts, `crash` and `specialist_<k>`.
 
-Only this layout is read: checkpoints of the JAX package (orbax) are not
-(ROADMAP item 13b). Warm starts and `enjoy` read a snapshot's `"policy"`
-from any file of this layout (`CheckpointManager.read`); the reference's
-pickled policies go through runtime/torch_import.py instead.
+Only this layout is read. A checkpoint of the JAX package is an orbax
+directory under the same tag (`<directory>/<tag>/`); the port does not
+decode it, and every reader of a tag (resume, `enjoy.load_params` and so
+warm starts, the behavior evaluation) refuses one with a ValueError that
+names the converter, `scripts/jax_ckpt_to_port.py`, run where JAX is
+installed. A port file `<tag>.pt` beside such a directory is read as
+usual. Warm starts and `enjoy` read a snapshot's `"policy"` from any file
+of this layout (`CheckpointManager.read`); the reference's pickled
+policies go through runtime/torch_import.py instead.
 """
 
 from __future__ import annotations
@@ -25,6 +30,32 @@ import tempfile
 import torch
 
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, barrier, broadcast_object
+
+CONVERTER = "scripts/jax_ckpt_to_port.py"
+# files orbax writes into every checkpoint directory
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    """Whether `path` is a directory that orbax wrote (a tag of the JAX
+    package's CheckpointManager)."""
+    return os.path.isdir(path) and any(os.path.exists(os.path.join(path, m))
+                                       for m in ORBAX_MARKERS)
+
+
+def _orbax_error(path: str) -> ValueError:
+    return ValueError(
+        f"{path} is a checkpoint of the JAX package (orbax), which the port does not "
+        f"read; convert it where JAX is installed: python {CONVERTER} "
+        f"{os.path.dirname(path) or '.'} --out <port run>/checkpoints")
+
+
+def refuse_orbax(path: str) -> None:
+    """Raise ValueError, naming the converter, where `path` (a tag without
+    `.pt`) is a JAX package checkpoint and no port file `<path>.pt` is
+    beside it."""
+    if not os.path.isfile(f"{path}.pt") and is_orbax_checkpoint(path):
+        raise _orbax_error(path)
 
 
 def to_host(tree):
@@ -117,10 +148,19 @@ class CheckpointManager:
         the layout differs."""
         return _rebuild(template, self.restore(tag), self.path(tag))
 
+    def _status(self, tag: str) -> str:
+        if os.path.isfile(self.path(tag)):
+            return "port"
+        return "orbax" if is_orbax_checkpoint(os.path.join(self.directory, tag)) else "none"
+
     def exists(self, tag: str) -> bool:
+        """Whether a port snapshot is saved under `tag`; raises ValueError
+        naming the converter where only the JAX package's is."""
         barrier(self.mesh)
-        return broadcast_object(self.mesh, os.path.isfile(self.path(tag))
-                                if self.mesh.rank == 0 else None)
+        status = broadcast_object(self.mesh, self._status(tag) if self.mesh.rank == 0 else None)
+        if status == "orbax":
+            raise _orbax_error(os.path.join(self.directory, tag))
+        return status == "port"
 
     def tags(self) -> list:
         return sorted(f[:-3] for f in os.listdir(self.directory) if f.endswith(".pt"))

@@ -35,16 +35,19 @@ from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.stepper import ResetDraws, create_temp_states
 from steppingstone_tpu_torch.physics import kinematics as km
-from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager
+from steppingstone_tpu_torch.runtime.checkpoint import CheckpointManager, refuse_orbax
 from steppingstone_tpu_torch.runtime.torch_import import REFERENCE_MODELS, load_reference_checkpoint
 
 
 def _checkpoint_file(net_path: str) -> str:
     """The file behind `net_path`: the path itself, or a port tag without
-    its `.pt` (`CheckpointManager(dirname).path(basename)`)."""
+    its `.pt` (`CheckpointManager(dirname).path(basename)`). A JAX
+    package checkpoint (an orbax directory) is refused, naming the
+    converter."""
     for path in (net_path, f"{net_path}.pt"):
         if os.path.isfile(path):
             return path
+    refuse_orbax(net_path.rstrip(os.sep))
     raise FileNotFoundError(f"no checkpoint at {net_path} (nor {net_path}.pt)")
 
 
@@ -58,7 +61,9 @@ def load_params(net_path: str, env, num_ensembles: int, device=None) -> tuple[di
     - a reference pickle (runtime/torch_import.py): any other `.pt`, whose
       classes a weights-only read refuses.
 
-    Raises, naming the path, on a missing path or a file of neither kind.
+    Raises, naming the path, on a missing path or a file of neither kind,
+    and ValueError naming the converter on a JAX package checkpoint (an
+    orbax directory; runtime/checkpoint.py `refuse_orbax`).
     `num_ensembles` is the caller's expectation; the count returned is the
     checkpoint's."""
     dev = resolve_device(device)

@@ -75,6 +75,32 @@ class IterationDraws(NamedTuple):
     perms: torch.Tensor | None = None         # (ppo_epoch, used) minibatch row orders
 
 
+class Strategies(NamedTuple):
+    """The curriculum strategies a config enables, each None where it is
+    off."""
+
+    fixed: curr.FixedCurriculum | None
+    assist: curr.FixedCurriculum | None      # the grid-mode assist ladder
+    specialist: curr.SpecialistSchedule | None
+    adaptive: curr.AdaptiveSampling | None
+    threshold: curr.ThresholdSampling | None
+
+    def snapshot_keys(self, anneal_start: int, first_sampling: bool) -> dict:
+        """The strategies' state as a snapshot's "curriculum" keys."""
+        fixed, assist, specialist, _, threshold = self
+        return {
+            "fixed_level": fixed.level if fixed else -1,
+            "fixed_frac": fixed.frac if fixed else -1.0,
+            "assist_level": assist.level if assist else -1,
+            "assist_frac": assist.frac if assist else -1.0,
+            "specialist": specialist.specialist if specialist else -1,
+            "thr_uniform_counter": threshold.uniform_counter if threshold else -1,
+            "thr_uniform_sampling": bool(threshold.uniform_sampling) if threshold else False,
+            "anneal_start": anneal_start,
+            "first_sampling": bool(first_sampling),
+        }
+
+
 class Trainer:
     """Wires config -> mesh -> env fleet (and test fleet) -> networks -> PPO
     on one device (`None` means the card; under a process group
@@ -205,6 +231,19 @@ class Trainer:
             gens["value_grid"] = self.value_grid.venv.generator
         return gens
 
+    def generator_seeds(self) -> dict:
+        """Each generator's seed at the start of a run (cfg.seed after the
+        replicate offset): the fleet's and the permutations' cfg.seed, the
+        test fleet's cfg.seed + 1, the value grid's cfg.seed + 2."""
+        offsets = {"venv": 0, "trainer": 0, "test_venv": 1, "value_grid": 2}
+        return {k: self.cfg.seed + offsets[k] for k in self._generators()}
+
+    def seed_generators(self) -> None:
+        """Seed every generator as at the start of a run."""
+        seeds = self.generator_seeds()
+        for k, g in self._generators().items():
+            g.manual_seed(seeds[k])
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -213,6 +252,48 @@ class Trainer:
         """The deterministic test fleet over one episode length."""
         return evaluate(self.test_venv, policy, test_state, test_obs,
                         self.env.cfg.max_episode_steps)
+
+    def make_strategies(self) -> Strategies:
+        """The config's curriculum strategies, at their initial state."""
+        cfg = self.cfg
+        fixed = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
+                                      bar=cfg.curriculum_bar)
+                 if cfg.use_curriculum else None)
+        # grid-mode assist ladder: threshold and adaptive runs ramp the
+        # support geometry carpet -> calibrated without touching the
+        # sampling distribution
+        assist = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
+                                       assist_only=True, bar=cfg.assist_bar)
+                  if cfg.grid_assist and self.value_grid is not None else None)
+        specialist = curr.SpecialistSchedule(self.venv) if cfg.use_specialist else None
+        adaptive = (curr.AdaptiveSampling(self.venv, self.env, scale=float(cfg.sampling_scale),
+                                          value_grid=self.value_grid)
+                    if cfg.use_adaptive_sampling else None)
+        threshold = (curr.ThresholdSampling(self.venv, self.env,
+                                            threshold=cfg.curriculum_threshold,
+                                            scale=float(cfg.sampling_scale),
+                                            value_grid=self.value_grid)
+                     if cfg.use_threshold_sampling else None)
+        return Strategies(fixed, assist, specialist, adaptive, threshold)
+
+    def fresh_fleets(self, strategies: Strategies):
+        """A fresh start's fleets, drawn from their generators: (env_state,
+        obs, test_state, test_obs), the mirror set with use_phase_mirror
+        and the strategies' initial curricula installed; the test fleet's
+        pair None without one."""
+        cfg = self.cfg
+        env_state, obs = self.venv.reset()
+        if cfg.use_phase_mirror:
+            env_state = self.venv.set_mirror(env_state, True)
+        test_state = test_obs = None
+        if self.test_venv is not None:
+            test_state, test_obs = self.test_venv.reset()
+            if cfg.use_phase_mirror:
+                test_state = self.test_venv.set_mirror(test_state, True)
+        for strategy in (strategies.fixed, strategies.assist, strategies.specialist):
+            if strategy:
+                env_state = strategy.install(env_state)
+        return env_state, obs, test_state, test_obs
 
     def replicate_learner(self, *trees) -> None:
         """Rank 0's learner on every rank: the policy's parameters and the
@@ -226,55 +307,21 @@ class Trainer:
         rank0 = self.mesh.rank == 0
         exp_dir = init_experiment(cfg, write=rank0)
         # the replicate offset moved cfg.seed: every generator starts from it
-        self.venv.generator.manual_seed(cfg.seed)
-        self.generator.manual_seed(cfg.seed)
-        if self.test_venv is not None:
-            self.test_venv.generator.manual_seed(cfg.seed + 1)
-        if self.value_grid is not None:
-            self.value_grid.venv.generator.manual_seed(cfg.seed + 2)
+        self.seed_generators()
 
         policy = self.init_params()
         opt_state = init_optimizer(policy)
         # value-only updates get their OWN Adam moments, like the reference's
         # separate `value_optimizer` (`algorithms/ppo.py:36-38`)
         value_opt_state = init_optimizer(policy)
-        env_state, obs = self.venv.reset()
-        if cfg.use_phase_mirror:
-            env_state = self.venv.set_mirror(env_state, True)
-        test_state = test_obs = None
-        if self.test_venv is not None:
-            test_state, test_obs = self.test_venv.reset()
-            if cfg.use_phase_mirror:
-                test_state = self.test_venv.set_mirror(test_state, True)
-        stats = EpisodeStats.init(self.venv.num_envs, self.device)
-        self.replicate_learner(policy, opt_state, value_opt_state)
-
-        # ---- curriculum strategies -----------------------------------
-        fixed = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
-                                      bar=cfg.curriculum_bar)
-                 if cfg.use_curriculum else None)
+        # the curriculum strategies, installed on the fresh fleet
+        strategies = self.make_strategies()
+        fixed, assist, specialist, adaptive, threshold = strategies
         if fixed:
             print("curriculum", fixed.level, flush=True)
-            env_state = fixed.install(env_state)
-        # grid-mode assist ladder: threshold and adaptive runs ramp the
-        # support geometry carpet -> calibrated without touching the
-        # sampling distribution
-        assist = (curr.FixedCurriculum(self.venv, ramp_updates=cfg.level_ramp_updates,
-                                       assist_only=True, bar=cfg.assist_bar)
-                  if cfg.grid_assist and self.value_grid is not None else None)
-        if assist:
-            env_state = assist.install(env_state)
-        specialist = curr.SpecialistSchedule(self.venv) if cfg.use_specialist else None
-        if specialist:
-            env_state = specialist.install(env_state)
-        adaptive = (curr.AdaptiveSampling(self.venv, self.env, scale=float(cfg.sampling_scale),
-                                          value_grid=self.value_grid)
-                    if cfg.use_adaptive_sampling else None)
-        threshold = (curr.ThresholdSampling(self.venv, self.env,
-                                            threshold=cfg.curriculum_threshold,
-                                            scale=float(cfg.sampling_scale),
-                                            value_grid=self.value_grid)
-                     if cfg.use_threshold_sampling else None)
+        env_state, obs, test_state, test_obs = self.fresh_fleets(strategies)
+        stats = EpisodeStats.init(self.venv.num_envs, self.device)
+        self.replicate_learner(policy, opt_state, value_opt_state)
 
         ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"), self.mesh)
         logger = (ConsoleCSVLogger(exp_dir, console_log_interval=cfg.log_interval,
@@ -313,32 +360,32 @@ class Trainer:
                 "frames": frames,
                 "max_ep_reward": max(max_ep_reward, -1e30),
                 "test_rets": torch.as_tensor(tr),
-                "curriculum": {
-                    "fixed_level": fixed.level if fixed else -1,
-                    "fixed_frac": fixed.frac if fixed else -1.0,
-                    "assist_level": assist.level if assist else -1,
-                    "assist_frac": assist.frac if assist else -1.0,
-                    "specialist": specialist.specialist if specialist else -1,
-                    "thr_uniform_counter": threshold.uniform_counter if threshold else -1,
-                    "thr_uniform_sampling": bool(threshold.uniform_sampling) if threshold else False,
-                    "anneal_start": anneal_start,
-                    "first_sampling": bool(first_sampling),
-                },
+                "curriculum": strategies.snapshot_keys(anneal_start, first_sampling),
             }
             if self.test_venv is not None:
                 snap["test_state"] = gather(self.test_venv, test_state)
                 snap["test_obs"] = gather(self.test_venv, test_obs)
             return snap
 
+        # a JAX run's orbax `latest` (with no port `latest.pt` beside it)
+        # raises here, naming the converter, instead of starting afresh
         if cfg.resume and ckpt.exists("latest"):
-            snap = ckpt.restore_like("latest", make_snapshot(0, 0))
+            template = make_snapshot(0, 0)
+            # each generator's state (set_state checks it), or its seed in a
+            # snapshot converted from the JAX package: its streams restart
+            template["generators"] = dict.fromkeys(template["generators"])
+            snap = ckpt.restore_like("latest", template)
             policy.load_state_dict(snap["policy"])
             opt_state, value_opt_state = snap["opt_state"], snap["value_opt_state"]
             # each rank takes its slice of the fleets
             env_state, obs, stats = pmesh.shard_env_tree(
                 self.venv.mesh, (snap["env_state"], snap["obs"], snap["stats"]))
             for k, g in self._generators().items():
-                g.set_state(snap["generators"][k])
+                saved = snap["generators"][k]
+                if isinstance(saved, int):
+                    g.manual_seed(saved)
+                else:
+                    g.set_state(saved)
             start_update = int(snap["update"])
             max_ep_reward = float(snap["max_ep_reward"])
             tr = snap["test_rets"].numpy()

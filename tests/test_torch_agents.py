@@ -27,12 +27,14 @@ from steppingstone_tpu.agents import rollout as jroll
 from steppingstone_tpu.agents.networks import ActorCritic as JActorCritic
 from steppingstone_tpu.envs import make_env as jmake_env
 from steppingstone_tpu.envs.vector import VecEnv as JVecEnv
+from steppingstone_tpu.ops import linalg as jla
 from steppingstone_tpu_torch.agents import distributions as tdist
 from steppingstone_tpu_torch.agents import rollout as troll
 from steppingstone_tpu_torch.agents.networks import (
     ActorCritic as TActorCritic, clamped_logstd, params_from_jax)
 from steppingstone_tpu_torch.envs import make_env as tmake_env
 from steppingstone_tpu_torch.envs.vector import VecEnv as TVecEnv
+from steppingstone_tpu_torch.ops import linalg as tla
 
 N = 8
 N_STONES = 20
@@ -107,6 +109,25 @@ def test_distributions_match_jax():
         np.asarray(jdist.log_prob(jnp.asarray(mean), jnp.asarray(logstd), a_j)), rtol=1e-5)
     np.testing.assert_allclose(tdist.entropy(torch.as_tensor(logstd)).numpy(),
                                np.asarray(jdist.entropy(jnp.asarray(logstd))), rtol=1e-6)
+
+
+def test_mode_matches_jax():
+    mean = np.random.default_rng(4).standard_normal((16, 21)).astype(np.float32)
+    np.testing.assert_allclose(tdist.mode(torch.as_tensor(mean)).numpy(),
+                               np.asarray(jdist.mode(jnp.asarray(mean))), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [6, 27])
+def test_cholesky_unrolled_matches_jax(n):
+    """The lower factor of SPD matrices (Walker3D's 27 dofs among them)."""
+    r = np.random.default_rng(n)
+    a = r.standard_normal((8, n, n)).astype(np.float32)
+    A = (a @ a.transpose(0, 2, 1) / n + np.eye(n, dtype=np.float32)).astype(np.float32)
+    L_j = np.asarray(jla.cholesky_unrolled(jnp.asarray(A)))
+    L_t = tla.cholesky_unrolled(torch.as_tensor(A)).numpy()
+    np.testing.assert_allclose(L_t, L_j, rtol=1e-6, atol=1e-6)
+    assert np.all(np.triu(L_t, 1) == 0)
+    np.testing.assert_allclose(L_t @ L_t.transpose(0, 2, 1), A, atol=1e-5)
 
 
 def test_collect_rollout_matches_jax():

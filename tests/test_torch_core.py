@@ -8,6 +8,7 @@ the last bits (sin/cos/atan2 implementations, fused multiply-adds), so
 inertias get 1e-5 relative; the 27-dof solve gets 1e-4 relative on a
 matrix conditioned ~1e4."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,11 +17,13 @@ import torch
 from steppingstone_tpu.core import quaternion as jq
 from steppingstone_tpu.core import spatial as jsp
 from steppingstone_tpu.ops import linalg as jla
+from steppingstone_tpu.physics import kinematics as jkin
 from steppingstone_tpu.physics.robots import cassie as jcassie
 from steppingstone_tpu.physics.robots import walker3d as jwalker
 from steppingstone_tpu_torch.core import quaternion as tq
 from steppingstone_tpu_torch.core import spatial as tsp
 from steppingstone_tpu_torch.ops import linalg as tla
+from steppingstone_tpu_torch.physics import kinematics as tkin
 from steppingstone_tpu_torch.physics.robots import REGISTRY as TREGISTRY
 from steppingstone_tpu_torch.physics.robots import cassie as tcassie
 from steppingstone_tpu_torch.physics.robots import walker3d as twalker
@@ -60,6 +63,9 @@ QUAT_CASES = {
         r.uniform(-3, 3, B).astype(np.float32)),
     "to_matrix": lambda r: (jq.to_matrix, tq.to_matrix, _unit_quats(r, B)),
     "to_euler_zyx": lambda r: (jq.to_euler_zyx, tq.to_euler_zyx, _unit_quats(r, B)),
+    "from_euler_zyx": lambda r: (jq.from_euler_zyx, tq.from_euler_zyx,
+                                 *r.uniform(-3, 3, (3, B)).astype(np.float32)),
+    "heading": lambda r: (jq.heading, tq.heading, _unit_quats(r, B)),
     "normalize": lambda r: (jq.normalize, tq.normalize,
                             r.standard_normal((B, 4)).astype(np.float32)),
     "integrate": lambda r: (lambda q, w: jq.integrate(q, w, 1.0 / 240.0),
@@ -103,6 +109,28 @@ def test_spatial_matches_jax(name):
     fn_j, fn_t, *args = SPATIAL_CASES[name](*_spatial_args(np.random.default_rng(1)))
     for a, b in zip(*_pair(fn_j, fn_t, *args)):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+
+
+def test_point_velocity_matches_jax():
+    r = np.random.default_rng(2)
+    v = r.standard_normal((B, 6)).astype(np.float32)
+    p = r.standard_normal((B, 3)).astype(np.float32)
+    for a, b in zip(*_pair(jsp.point_velocity, tsp.point_velocity, v, p)):
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["split_q", "split_qd"])
+def test_split_state_matches_jax(name):
+    """kinematics.split_q / split_qd over a batch of Walker3D states
+    (root position, quaternion, joints; root angular, linear, joints)."""
+    mj, mt = jwalker.walker3d(), twalker.walker3d()
+    width = mj.nq if name == "split_q" else mj.ndof
+    x = np.random.default_rng(3).standard_normal((B, width)).astype(np.float32)
+    ref = jax.vmap(lambda row: getattr(jkin, name)(mj, row))(jnp.asarray(x))
+    out = getattr(tkin, name)(mt, torch.as_tensor(x))
+    assert len(out) == len(ref) == 3
+    for a, b in zip(ref, out):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)
 
 
 def _assert_models_equal(mj, mt):

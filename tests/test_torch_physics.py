@@ -285,6 +285,22 @@ def test_pd_target_from_action_matches_jax():
     assert torch.all(kd[kp == 0] == 0) and torch.all(lim[kp == 0] == 0)
 
 
+def test_pd_actuation_matches_jax():
+    """The explicit PD torque on Cassie, a plain function (no step), with
+    joint angles and velocities drawn wide enough that some torques clamp."""
+    mj, mt = jcassie(), tcassie()
+    rng = np.random.default_rng(9)
+    action, _ = _pd_draws(rng, mj, B)
+    qj = rng.uniform(-1.5, 1.5, (B, mj.njoints)).astype(np.float32)
+    qdj = rng.uniform(-10, 10, (B, mj.njoints)).astype(np.float32)
+    ref = np.asarray(jax.vmap(lambda a, q, qd: jeng.pd_actuation(mj, a, q, qd))(action, qj, qdj))
+    out = teng.pd_actuation(mt, *(torch.as_tensor(x) for x in (action, qj, qdj))).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    lim = mj.torque_limit[mj.actuated_idx]
+    assert np.any(np.abs(ref[:, mj.actuated_idx]) == lim), "no torque reached its limit"
+    assert np.all(ref[:, ~mj.actuated] == 0)
+
+
 @pytest.mark.parametrize("case", ["cassie_pd_disc", "cassie_pd_plank", "walker_plank"])
 def test_engine_step_variants_match_jax_step_scan(case, walker):
     """engine.step (plain version on the CPU) in its stable-PD (K3), plank

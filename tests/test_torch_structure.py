@@ -57,7 +57,7 @@ def test_port_imports_no_jax():
                    "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py",
                    "viz/sampling_prob.py", "runtime/enjoy.py", "runtime/torch_import.py",
                    "viz/render.py", "viz/stats_hud.py", "viz/value_grids.py",
-                   "viz/plot_from_csv.py", "viz/fast_plot.py"):
+                   "viz/plot_from_csv.py", "viz/fast_plot.py", "runtime/behavior_eval.py"):
         assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
@@ -123,6 +123,11 @@ def test_entry_points_default_to_the_card():
         enjoy.main(["--net", "/nonexistent/latest", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         enjoy.load_params("/nonexistent/latest", env, 1)
+    # the behavior evaluation too (its --device defaults to cuda)
+    from steppingstone_tpu_torch.runtime import behavior_eval
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        behavior_eval.main(["/nonexistent/run", "--envs", "2", "--steps", "1"])
 
 
 def _k1_args(b=4, n_stones=20):
