@@ -20,7 +20,8 @@ order; any failure exits non-zero and no phase's failure is caught:
    64, the round-5 runs' fleet and test fleet, K2 also at 16, the value
    grid's eval fleet, and at 512 and 32, a rank's fleet and test fleet of
    the sharded round-5 run; K1 also at 512, a rank's fleet of the dry
-   run; K1 and K2 also at 256, the behavior evaluation's fleet), on states
+   run; K1 and K2 also at 256, the behavior evaluation's fleet; K1 also
+   at 128, entry()'s fleet), on states
    from a short rollout
    of the port plus random perturbations, so that contacts, on-stone feet,
    joint limits and (planks) feet beyond the disc radius but on the plank
@@ -40,15 +41,27 @@ order; any failure exits non-zero and no phase's failure is caught:
    launch counts set to 0 just before and read just after (and no call of
    the plain version, and no launch of the thread-per-env design of a
    warp-per-env variant, allowed):
-   - K1: Walker3D rollout, VecEnv(4096), 100 steps, exactly 100 K1
+   - K1: Walker3D rollout, VecEnv(4096), 25 steps, exactly 25 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
    - K3: Cassie (disc support) rollout, 4096 envs, 25 steps, exactly 25
+   - the measurement entry points (this slice's path, K1 on discs):
+     entry() (steppingstone_tpu_torch/entry.py), 3 forward steps at its
+     128 envs, exactly 3 K1 launches, every output finite, one step on the
+     card against the CPU from the same state, draws and parameters;
+     steppingstone_tpu_torch/bench.py at bench.py's
+     4096 envs x 100 steps, cut in depth to one warm-up and one timed
+     Trainer.train_iteration and one warm-up and one timed rollout chunk of
+     25 steps: exactly 250 K1 launches, its JSON line printed; the update
+     probe (steppingstone_tpu_torch/update_probe.py) at 12800-row
+     minibatches, mirrored, on 409,600 rows; a profile of 10 PPO minibatch
+     steps of the bench's 4096 rows
    - K2+K3: the round-5 Cassie training configuration (CassieStepper-v1,
      LargePlank, phase mirror, 2 critics, KL guard), 4096 envs x 100
-     steps, 2 Trainer.train_iterations (GAE, 10 epochs x 100 minibatches
-     of 4096 rows), exactly 200 launches, every output finite; then the
-     rollout / update split of a third iteration and profiles of both
+     steps, one training iteration driven in its halves (Trainer.rollout,
+     then Trainer.update: GAE, 10 epochs x 100 minibatches of 4096 rows),
+     exactly 100 launches, every output finite, the rollout / update split
+     and profiles of both
    - K2: Walker3D LargePlank train_iteration with mirror-augmented PPO,
      4096 envs x 25 steps, exactly 25 launches
    - one Cassie LargePlank training iteration on the card against the
@@ -107,10 +120,10 @@ order; any failure exits non-zero and no phase's failure is caught:
      hits, steps equal)
    - behavior evaluation: behavior_eval.main on the card on the round-5
      Walker3D loop's checkpoints/latest at the round-5 reports' 256 envs,
-     cut in depth from 1000 steps an entry to 100: scripts/round5_evals.sh
+     cut in depth from 1000 steps an entry to 50: scripts/round5_evals.sh
      :8 with its levels cut from 0 2 5 to 0 5 and :15 with its bands cut
-     from 0 1 2 3 to 0 3 (LargePlank, exactly 200 K2 launches each), and
-     level 0 on discs (exactly 100 K1); each report with the JAX script's
+     from 0 1 2 3 to 0 3 (LargePlank, exactly 100 K2 launches each), and
+     level 0 on discs (exactly 50 K1); each report with the JAX script's
      keys (read from scripts/behavior_eval.py), every value finite, falls
      and whole-track walks within the episodes; ms a step, one profiled
      entry; one 8-env x 30-step LargePlank entry on the card against the
@@ -134,7 +147,9 @@ order; any failure exits non-zero and no phase's failure is caught:
      learner, rank 0 alone writes progress.csv (the reference header) and
      the checkpoints; each rank's time in collectives per minibatch step
      (the gradient all-reduce) and per update is printed
-5. one JSON line `{"kernels": [...]}` (each variant with its `design`,
+5. one JSON line `{"kernels": [...]}` (K1's `launches` are the bench's on
+   the measurement path, each variant's other paths under `other_paths`;
+   each variant with its `design`,
    `earlier_ms`, the thread-per-env design's time in this run, and
    `occupancy`), the script's wall time, the card line, and last
    `{"ok": true, "device": {...}}`
@@ -155,7 +170,9 @@ import tempfile
 import time
 
 NUM_ENVS = 4096
-ROLLOUT_STEPS = 100
+# the Walker3D rollout path's steps: the bench's rollout chunk (the
+# measurement path's bench times the same rollout at length)
+ROLLOUT_STEPS = 25
 CHECK_BATCHES = (4096, 1000)
 # the round-5 Walker3D run's fleet and test fleet (R5_W3D)
 R5_ENVS, R5_TEST_ENVS = 1024, 64
@@ -174,14 +191,24 @@ DRYRUN_ENVS = 1024
 # rank's fleet of the dry run
 # the behavior evaluation's fleet (runtime/behavior_eval.py --envs)
 BEHAVIOR_ENVS = 256
-PATH_BATCHES = {"K1": (DRYRUN_ENVS // SHARDED_RANKS, BEHAVIOR_ENVS),
+# the measurement path (steppingstone_tpu_torch/entry.py, bench.py,
+# update_probe.py): entry's fleet and its forward steps; the bench at
+# bench.py's full width cut in depth to BENCH_REPEATS timed iteration and
+# rollout chunk (after its own warm-up of each); one grid point of the
+# update probe (minibatch rows, mirror); the minibatch steps profiled at
+# the bench's minibatch rows
+ENTRY_ENVS = 128
+ENTRY_CALLS = 3
+BENCH_REPEATS = 1
+PROBE_POINT = (12800, True)
+PROFILED_MINIBATCHES = 10
+PATH_BATCHES = {"K1": (DRYRUN_ENVS // SHARDED_RANKS, BEHAVIOR_ENVS, ENTRY_ENVS),
                 "K2": (R5_ENVS, R5_TEST_ENVS, GRID_ENVS, R5_ENVS // SHARDED_RANKS,
                        R5_TEST_ENVS // SHARDED_RANKS, BEHAVIOR_ENVS),
                 "K2+K3": (R5_ENVS, R5_TEST_ENVS)}
 TIMED_LAUNCHES = 50
 CASSIE_DISC_STEPS = 25
 TRAIN_STEPS = 100
-TRAIN_ITERATIONS = 2
 WALKER_PLANK_STEPS = 25
 LR = 3e-4
 # the round-5 Cassie run (scripts/round5_runs.sh), at one card's env count
@@ -244,12 +271,15 @@ THR_LAUNCHES = {"first": 400 + 1000, "resumed": 400 + GRID_STEPS}
 # the round-5 specialist run, runs/r5_specialist (its own line :117-122):
 # the specialist schedule warm-started from the round-5 Walker3D run's
 # checkpoints/best (here the cut loop's above) with its logstd reset to
-# -2.0, cut in depth to one update: 400 K2 launches and the test fleet's
-# episode (1000)
+# -2.0, cut in depth to one update of SPECIALIST_STEPS control steps (the
+# run's 400 halved; minibatches keep their 1024 rows): 200 K2 launches and
+# the test fleet's episode (1000)
+SPECIALIST_STEPS = 200
 R5_SPECIALIST = R5_COMMON + ["env_name=Walker3DStepperEnv-v0", "plank_class=LargePlank",
                              "use_specialist=True", "warm_start_logstd=-2.0", "kl_cutoff=0.12",
-                             "lr_warmup_updates=20"]
-SPECIALIST_LAUNCHES = 400 + 1000
+                             "lr_warmup_updates=20",
+                             f"episode_steps={R5_ENVS * SPECIALIST_STEPS}"]
+SPECIALIST_LAUNCHES = SPECIALIST_STEPS + 1000
 # enjoy's episodes end where the policy falls, at most ENJOY_STEPS steps;
 # the card against the CPU over CARD_CPU_EPISODE_STEPS at most
 ENJOY_STEPS = 1000
@@ -259,11 +289,13 @@ CARD_CPU_EPISODE_STEPS = 30
 ONE_ENV = ("K1", "K2")
 # the behavior evaluation of the round-5 reports on the round-5 Walker3D
 # loop's checkpoints (runs/r5_w3d, latest), at its 256 envs, cut in depth
-# from 1000 steps to BEHAVIOR_STEPS: scripts/round5_evals.sh:8 (levels 0 2 5
-# on LargePlank, cut to 0 5) and :15 (bands 0 1 2 3 on LargePlank, cut to
-# 0 3), each entry one K2 launch a step; and level 0 on discs, one K1 launch
-# a step. name -> (flags, variant, launches)
-BEHAVIOR_STEPS = 100
+# from 1000 steps to BEHAVIOR_STEPS (the untrained policy falls after ~21
+# steps, so episodes still end):
+# scripts/round5_evals.sh:8 (levels 0 2 5 on LargePlank, cut to 0 5) and
+# :15 (bands 0 1 2 3 on LargePlank, cut to 0 3), each entry one K2 launch a
+# step; and level 0 on discs, one K1 launch a step.
+# name -> (flags, variant, launches)
+BEHAVIOR_STEPS = 50
 BEHAVIOR_RUNS = {
     "levels 0 5, LargePlank": (["--levels", "0", "5", "--plank_class", "LargePlank"], "K2",
                                2 * BEHAVIOR_STEPS),
@@ -801,20 +833,21 @@ def profile_rollout(venv, policy, state, obs, steps: int = 5) -> dict:
     return device_time(prof, wall_ms, steps)
 
 
-def profile_update(trainer, policy, opt_state, batch, steps: int = 10) -> dict:
-    """`steps` PPO minibatch steps of the trainer's minibatch size under
-    torch.profiler (one epoch over the first steps x rows of the batch)."""
+def profile_update(ppo_cfg, generator, policy, opt_state, batch, steps: int = 10) -> dict:
+    """`steps` PPO minibatch steps of `ppo_cfg`'s minibatch size on `batch`
+    under torch.profiler (one epoch over the first steps x rows of the
+    batch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from steppingstone_tpu_torch.agents.ppo import ppo_update
 
-    rows = batch["obs"].shape[0] // trainer.ppo_cfg.num_mini_batch
-    cfg = dataclasses.replace(trainer.ppo_cfg, ppo_epoch=1, num_mini_batch=steps)
+    rows = batch["obs"].shape[0] // ppo_cfg.num_mini_batch
+    cfg = dataclasses.replace(ppo_cfg, ppo_epoch=1, num_mini_batch=steps)
     sub = {k: v[:steps * rows] for k, v in batch.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ppo_update(policy, opt_state, cfg, sub, LR, generator=trainer.generator)
+        ppo_update(policy, opt_state, cfg, sub, LR, generator=generator)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     out = device_time(prof, wall_ms, steps)
@@ -823,8 +856,10 @@ def profile_update(trainer, policy, opt_state, batch, steps: int = 10) -> dict:
 
 
 def cassie_training_path() -> dict:
-    """The round-5 Cassie configuration through Trainer.train_iteration:
-    4096 envs x 100 steps, 2 iterations, every step one K2+K3 launch."""
+    """The round-5 Cassie configuration through one training iteration,
+    driven in its two halves (Trainer.rollout, then Trainer.update: what
+    Trainer.train_iteration runs) and timed in each: 4096 envs x 100 steps,
+    every step one K2+K3 launch; then profiles of both halves."""
     import torch
 
     from steppingstone_tpu_torch.agents.ppo import init_optimizer
@@ -844,38 +879,26 @@ def cassie_training_path() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_kernel.CONTROL_STEP.reset_counts()
-    metrics = []
     with counting_plain() as plain:
         t0 = time.perf_counter()
-        for _ in range(TRAIN_ITERATIONS):
-            policy, opt_state, state, obs, stats, m, aux = trainer.train_iteration(
-                policy, opt_state, state, obs, stats, LR)
-            metrics.append(m)
+        state, obs, stats, batch, aux = trainer.rollout(policy, state, obs, stats)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        opt_state, m = trainer.update(policy, opt_state, batch, LR)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches("Cassie training", launches, "K2+K3", TRAIN_ITERATIONS * TRAIN_STEPS, plain[0])
+    check_launches("Cassie training", launches, "K2+K3", TRAIN_STEPS, plain[0])
     check_finite("Cassie training", {
         **{f"param {n}": p.detach() for n, p in policy.named_parameters()},
         "adam mu": opt_state.mu, "adam nu": opt_state.nu, "last_obs": obs,
         "q": state.phys.q, "qd": state.phys.qd, "ep_return": aux["ep_return"],
-        **{f"metric {k}": v for m in metrics for k, v in m._asdict().items()}})
-    frames = NUM_ENVS * TRAIN_STEPS * TRAIN_ITERATIONS
-    out = dict(launches=launches["K2+K3"], seconds=seconds,
-               seconds_per_iteration=seconds / TRAIN_ITERATIONS, env_steps_per_s=frames / seconds,
+        **batch, "rewards": aux["rewards"], **{f"metric {k}": v for k, v in m._asdict().items()}})
+    out = dict(launches=launches["K2+K3"], seconds=t2 - t0,
+               env_steps_per_s=NUM_ENVS * TRAIN_STEPS / (t2 - t0),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               metrics=[{k: float(v) for k, v in m._asdict().items()} for m in metrics])
-    # the rollout / update split, on a third iteration driven in its halves
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, obs, stats, batch, aux = trainer.rollout(policy, state, obs, stats)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    opt_state, m = trainer.update(policy, opt_state, batch, LR)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    check_finite("Cassie training batch", {**batch, "rewards": aux["rewards"]})
-    out.update(split_rollout_s=t1 - t0, split_update_s=t2 - t1,
+               metrics={k: float(v) for k, v in m._asdict().items()},
+               split_rollout_s=t1 - t0, split_update_s=t2 - t1,
                rollout_env_steps_per_s=NUM_ENVS * TRAIN_STEPS / (t1 - t0),
                update_ms_per_minibatch=1e3 * (t2 - t1) / (cfg.ppo_epoch * cfg.num_mini_batch),
                hits=int(aux["hits"]), dones=int(aux["ep_done"].sum()),
@@ -884,7 +907,120 @@ def cassie_training_path() -> dict:
     print("K2+K3 path profile (rollout):",
           json.dumps(profile_rollout(trainer.venv, policy, state, obs)), flush=True)
     print("K2+K3 path profile (update):",
-          json.dumps(profile_update(trainer, policy, opt_state, batch)), flush=True)
+          json.dumps(profile_update(trainer.ppo_cfg, trainer.generator, policy, opt_state,
+                                    batch)), flush=True)
+    return out
+
+
+def measurement_path() -> dict:
+    """The port's measurement entry points (this slice's path), all K1 on
+    discs: (a) entry(): ENTRY_CALLS forward steps at its 128 envs, exactly
+    one K1 launch each, every output finite, then one step on the card
+    against the same step on the CPU from the same state, draws and
+    parameters (obs, reward, value, log-prob, q and qd 1e-3, the discrete
+    state equal); (b) bench.run at bench.py's
+    4096 envs x 100 steps, cut in depth to BENCH_REPEATS timed iteration
+    and rollout chunk after one warm-up of each: exactly the K1 launches of
+    its control steps, its measured halves positive and within its
+    iteration; (c) the update probe at PROBE_POINT (no launch); (d) a
+    profile of PROFILED_MINIBATCHES PPO minibatch steps at the bench's
+    minibatch rows, mirrored, on the probe's synthetic rows."""
+    import torch
+
+    from steppingstone_tpu_torch import bench, entry, update_probe
+    from steppingstone_tpu_torch.agents.mirror import MirrorSpec
+    from steppingstone_tpu_torch.agents.networks import ActorCritic
+    from steppingstone_tpu_torch.agents.ppo import PPOConfig, init_optimizer
+    from steppingstone_tpu_torch.envs import make_env
+    from steppingstone_tpu_torch.physics import step_kernel
+
+    kernel = step_kernel.CONTROL_STEP
+    started = time.perf_counter()
+    out = {}
+    # (a) entry()
+    forward_step, (policy, state, obs) = entry.entry()
+    torch.cuda.synchronize()
+    kernel.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        for _ in range(ENTRY_CALLS):
+            state, obs, reward, value, log_p = forward_step(policy, state, obs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(kernel.launches)
+    check_launches("entry()", launches, "K1", ENTRY_CALLS, plain[0])
+    shapes = {"obs": (ENTRY_ENVS, 60), "reward": (ENTRY_ENVS,), "value": (ENTRY_ENVS, 1),
+              "log_p": (ENTRY_ENVS, 1)}
+    outs = dict(obs=obs, reward=reward, value=value, log_p=log_p)
+    if {k: tuple(v.shape) for k, v in outs.items()} != shapes:
+        raise AssertionError(f"entry() output shapes {[tuple(v.shape) for v in outs.values()]}")
+    check_finite("entry()", {**outs, "q": state.phys.q, "qd": state.phys.qd})
+    out["entry"] = dict(envs=ENTRY_ENVS, launches=launches["K1"],
+                        ms_per_step=1e3 * seconds / ENTRY_CALLS)
+    # one step on the card against the CPU, same state, draws, parameters
+    cpu_step, (cpu_policy, cpu_state, cpu_obs) = entry.entry(device="cpu")
+    draws = entry.draw_forward(make_env(entry.ENV_NAME, device="cpu"), cpu_state,
+                               torch.Generator().manual_seed(2))
+    policy.load_state_dict(cpu_policy.state_dict())
+    ref = cpu_step(cpu_policy, cpu_state, cpu_obs, draws)
+    got = forward_step(policy, _to(cpu_state, "cuda"), cpu_obs.cuda(), _to(draws, "cuda"))
+    errs = {}
+    for name, g, c in zip(("obs", "reward", "value", "log_p"), got[1:], ref[1:]):
+        errs[f"max_{name}_err"] = float((g.cpu() - c).abs().max())
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-3, atol=1e-3, msg=name)
+    for name in ("q", "qd"):
+        g, c = getattr(got[0].phys, name).cpu(), getattr(ref[0].phys, name)
+        errs[f"max_{name}_err"] = float((g - c).abs().max())
+        torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-3, msg=name)
+    for name in ("next_step_index", "elapsed", "foot_contact", "last_hit"):
+        if not torch.equal(getattr(got[0], name).cpu(), getattr(ref[0], name)):
+            raise AssertionError(f"entry() card vs CPU: {name} differs")
+    out["entry"].update(card_vs_cpu=errs, phase_seconds=time.perf_counter() - started)
+    print("K1 path (entry):", json.dumps(out["entry"]), flush=True)
+    # (b) the bench at full width; it prints its own JSON line
+    control_steps = (bench.WARMUPS + BENCH_REPEATS) * (bench.ROLLOUT_CHUNK + bench.TRAIN_STEPS)
+    kernel.reset_counts()
+    with counting_plain() as plain:
+        t0 = time.perf_counter()
+        result = bench.run(bench.NUM_ENVS, bench.TRAIN_STEPS, rollout_chunk=bench.ROLLOUT_CHUNK,
+                           rollout_repeats=BENCH_REPEATS, train_repeats=BENCH_REPEATS)
+        seconds = time.perf_counter() - t0
+    launches = dict(kernel.launches)
+    check_launches("bench", launches, "K1", control_steps, plain[0])
+    rates = [result[k] for k in ("value", "rollout_only_steps_per_s", "seconds_per_iteration")]
+    halves = result["phase_breakdown_s"]
+    if (result["control_steps"] != control_steps
+            or not 0 < min(halves.values()) <= sum(halves.values())
+            <= result["seconds_per_iteration"]
+            or "control_step_warp K1, cuda" not in result["metric"]
+            or not all(math.isfinite(x) and x > 0 for x in rates)
+            or not all(math.isfinite(x) for x in result["final_losses"].values())):
+        raise AssertionError(f"bench result: {result}")
+    out["bench"] = dict(launches=launches["K1"], seconds=seconds, value=result["value"],
+                        rollout_only_steps_per_s=result["rollout_only_steps_per_s"],
+                        seconds_per_iteration=result["seconds_per_iteration"],
+                        phase_breakdown_s=result["phase_breakdown_s"])
+    # (c) one grid point of the update probe: the PPO update alone
+    kernel.reset_counts()
+    t0 = time.perf_counter()
+    probe = update_probe.run(grid=(PROBE_POINT[0],), mirrors=(PROBE_POINT[1],))
+    if any(kernel.launches.values()) or not all(math.isfinite(p["seconds"]) for p in probe):
+        raise AssertionError(f"update probe: {probe}, launches {kernel.launches}")
+    out["update_probe"] = dict(points=probe, seconds=time.perf_counter() - t0)
+    # (d) the minibatch steps at the bench's rows, profiled
+    rows = bench.minibatch_rows(bench.NUM_ENVS * bench.TRAIN_STEPS)
+    cfg = PPOConfig(num_mini_batch=PROFILED_MINIBATCHES,
+                    mirror=MirrorSpec.from_env(make_env(entry.ENV_NAME)))
+    policy = ActorCritic(60, 21, generator=torch.Generator().manual_seed(0))
+    out["update_profile"] = dict(mirrored=True, **profile_update(
+        cfg, torch.Generator(device="cuda").manual_seed(0), policy, init_optimizer(policy),
+        update_probe.synthetic_batch(rows * PROFILED_MINIBATCHES, "cuda"),
+        PROFILED_MINIBATCHES))
+    out["phase_seconds"] = time.perf_counter() - started
+    print("K1 path (measurement):", json.dumps({k: out[k] for k in ("bench", "update_probe",
+                                                                    "update_profile",
+                                                                    "phase_seconds")}),
+          flush=True)
     return out
 
 
@@ -2041,8 +2177,11 @@ def main() -> int:
     mike = make_env("MikeStepperEnv-v0", plank_class="LargePlank")
     checks["K2"] += [check_variant(mike, "K2", b)[0] for b in (R5_ENVS, R5_TEST_ENVS)]
 
-    paths = {"K1": rollout_path(envs["K1"], "K1", ROLLOUT_STEPS, detail=True)}
+    walker_rollout = rollout_path(envs["K1"], "K1", ROLLOUT_STEPS, detail=True)
     card_vs_cpu()
+    # this slice's path: the measurement entry points
+    measured = measurement_path()
+    paths = {"K1": measured["bench"]}
     paths["K3"] = rollout_path(envs["K3"], "K3", CASSIE_DISC_STEPS, detail=False)
     paths["K2+K3"] = cassie_training_path()
     walker_plank = walker_plank_path()
@@ -2073,7 +2212,9 @@ def main() -> int:
                                     for p in ("first", "resumed")))
     # a variant's other paths, with their launches
     other_paths = {
-        "K1": {"enjoy, reference pickle, one env": enjoyed["reference"]["launches"],
+        "K1": {"Walker3D rollout (VecEnv, 4096 envs)": walker_rollout["launches"],
+               "entry() forward steps (128 envs)": measured["entry"]["launches"],
+               "enjoy, reference pickle, one env": enjoyed["reference"]["launches"],
                "behavior evaluation, level 0 on discs, 256 envs":
                    behavior["level 0, discs"]["launches"],
                "dryrun_multichip(2), each rank": dry["launches"]},

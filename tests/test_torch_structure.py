@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
                    "runtime/curriculum.py", "runtime/loggers.py", "runtime/schedules.py",
                    "viz/sampling_prob.py", "runtime/enjoy.py", "runtime/torch_import.py",
                    "viz/render.py", "viz/stats_hud.py", "viz/value_grids.py",
-                   "viz/plot_from_csv.py", "viz/fast_plot.py", "runtime/behavior_eval.py"):
+                   "viz/plot_from_csv.py", "viz/fast_plot.py", "runtime/behavior_eval.py",
+                   "entry.py", "bench.py", "update_probe.py"):
         assert PACKAGE / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
