@@ -1,0 +1,8 @@
+"""device_idle_share.eval: the share of the profiled entry's wall time in
+which no operation ran on the device."""
+
+from benchmark.harness.readers import idle_share
+
+
+def read(run):
+    return idle_share(run, "eval")
