@@ -31,6 +31,7 @@ from steppingstone_tpu_torch.agents.mirror import MirrorSpec, mirror_minibatch
 from steppingstone_tpu_torch.agents.networks import (
     ActorCritic, clamped_logstd, params_from_jax, project_logstd)
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, all_reduce_sum
+from steppingstone_tpu_torch.tracing import span
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 
@@ -136,18 +137,21 @@ def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOC
     PPOMetrics of this step). Over several ranks one all-reduce sums the
     flat gradient and the loss terms, so every rank clips, guards and
     steps on the global values and stays identical."""
-    if cfg.mirror is not None:
-        mb = mirror_minibatch(cfg.mirror, mb)
-    action_loss, value_loss, entropy, clip_frac, approx_kl = _losses(policy, cfg, mb, m_global)
-    total = value_loss * cfg.value_loss_coef
-    if not value_only:
-        total = total + action_loss
-        if mesh.rank == 0:
-            # the entropy depends on no row: it enters the global loss once
-            total = total - entropy * cfg.entropy_coef
-    grads = torch.autograd.grad(total, params, allow_unused=True)
-    g = torch.cat([(torch.zeros_like(p) if gr is None else gr).reshape(-1)
-                   for p, gr in zip(params, grads)])
+    with span("ppo.forward"):
+        if cfg.mirror is not None:
+            mb = mirror_minibatch(cfg.mirror, mb)
+        action_loss, value_loss, entropy, clip_frac, approx_kl = _losses(policy, cfg, mb,
+                                                                         m_global)
+        total = value_loss * cfg.value_loss_coef
+        if not value_only:
+            total = total + action_loss
+            if mesh.rank == 0:
+                # the entropy depends on no row: it enters the global loss once
+                total = total - entropy * cfg.entropy_coef
+    with span("ppo.backward"):
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        g = torch.cat([(torch.zeros_like(p) if gr is None else gr).reshape(-1)
+                       for p, gr in zip(params, grads)])
     value_loss, action_loss, clip_frac, approx_kl = (
         value_loss.detach(), action_loss.detach(), clip_frac, approx_kl.detach())
     if mesh.distributed:
@@ -155,24 +159,25 @@ def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOC
         summed = all_reduce_sum(mesh, torch.cat([g, terms]), kind="gradient")
         g = summed[:-4]
         value_loss, action_loss, clip_frac, approx_kl = summed[-4:]
-    gnorm = torch.sqrt(torch.sum(g * g))
-    # optax.clip_by_global_norm
-    g = torch.where(gnorm < cfg.max_grad_norm, g, (g / gnorm) * cfg.max_grad_norm)
-    # optax.scale_by_adam
-    mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
-    nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu
-    count = opt.count + 1
-    c = count.to(torch.float32)
-    update = (mu / (1 - ADAM_B1 ** c)) / (torch.sqrt(nu / (1 - ADAM_B2 ** c)) + cfg.eps)
-    step_lr = lr
-    if cfg.kl_cutoff > 0.0 and not value_only:
-        # trust guard: a minibatch that drifted too far applies no update
-        step_lr = torch.where(approx_kl > cfg.kl_cutoff, torch.zeros_like(lr), lr)
-    with torch.no_grad():
-        flat = torch.cat([p.reshape(-1) for p in params]) - step_lr * update
-        for p, x in zip(params, flat.split([p.numel() for p in params])):
-            p.copy_(x.view_as(p))
-    project_logstd(policy)
+    with span("ppo.optimizer"):
+        gnorm = torch.sqrt(torch.sum(g * g))
+        # optax.clip_by_global_norm
+        g = torch.where(gnorm < cfg.max_grad_norm, g, (g / gnorm) * cfg.max_grad_norm)
+        # optax.scale_by_adam
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu
+        count = opt.count + 1
+        c = count.to(torch.float32)
+        update = (mu / (1 - ADAM_B1 ** c)) / (torch.sqrt(nu / (1 - ADAM_B2 ** c)) + cfg.eps)
+        step_lr = lr
+        if cfg.kl_cutoff > 0.0 and not value_only:
+            # trust guard: a minibatch that drifted too far applies no update
+            step_lr = torch.where(approx_kl > cfg.kl_cutoff, torch.zeros_like(lr), lr)
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in params]) - step_lr * update
+            for p, x in zip(params, flat.split([p.numel() for p in params])):
+                p.copy_(x.view_as(p))
+        project_logstd(policy)
     metrics = PPOMetrics(value_loss, action_loss, entropy.detach(), gnorm, clip_frac, approx_kl)
     return AdamState(count, mu, nu), metrics
 
@@ -214,20 +219,22 @@ def ppo_update(policy: ActorCritic, opt_state: AdamState, cfg: PPOConfig, batch:
     dev = batch["obs"].device
     if mesh.world > 1 and num_envs is None:
         raise ValueError("a sharded ppo_update needs num_envs, this rank's envs")
-    if perms is None:
-        perms = torch.stack([torch.randperm(B, generator=generator, device=dev)[:used]
-                             for _ in range(cfg.ppo_epoch)])
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-    params = list(policy.parameters())
-    history = []
-    for epoch in range(cfg.ppo_epoch):
-        if mesh.world == 1:
-            minibatches = perms[epoch].view(cfg.num_mini_batch, mbs)
-        else:
-            minibatches = local_minibatches(mesh, perms[epoch], cfg.num_mini_batch, num_envs)
-        for rows in minibatches:
-            mb = {k: v[rows] for k, v in batch.items()}
-            opt_state, m = _minibatch_step(policy, params, opt_state, cfg, mb, lr, value_only,
-                                           mesh, mbs)
-            history.append(m)
-    return opt_state, PPOMetrics(*(torch.stack(x).mean() for x in zip(*history)))
+    with span("trainer.update"):
+        if perms is None:
+            perms = torch.stack([torch.randperm(B, generator=generator, device=dev)[:used]
+                                 for _ in range(cfg.ppo_epoch)])
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        params = list(policy.parameters())
+        history = []
+        for epoch in range(cfg.ppo_epoch):
+            if mesh.world == 1:
+                minibatches = perms[epoch].view(cfg.num_mini_batch, mbs)
+            else:
+                minibatches = local_minibatches(mesh, perms[epoch], cfg.num_mini_batch, num_envs)
+            for rows in minibatches:
+                with span("ppo.minibatch"):
+                    mb = {k: v[rows] for k, v in batch.items()}
+                    opt_state, m = _minibatch_step(policy, params, opt_state, cfg, mb, lr,
+                                                   value_only, mesh, mbs)
+                history.append(m)
+        return opt_state, PPOMetrics(*(torch.stack(x).mean() for x in zip(*history)))

@@ -1,8 +1,9 @@
 """Rollout collection (port of steppingstone_tpu/agents/rollout.py).
 
 A Python loop over control steps: policy forward, env step (one launch of
-kernel K1 on the card), storage insert. Episode bookkeeping keeps a
-per-env "last completed episode" slot.
+kernel K1 on the card), storage insert, each step a `rollout.step` span
+(tracing.py) holding a `policy` span and the env's `env.step`. Episode
+bookkeeping keeps a per-env "last completed episode" slot.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from steppingstone_tpu_torch.agents import distributions as dist
 from steppingstone_tpu_torch.agents.networks import ActorCritic, clamped_logstd
+from steppingstone_tpu_torch.tracing import span
 
 
 class Transition(NamedTuple):
@@ -76,25 +78,27 @@ def collect_rollout(venv, policy: ActorCritic, env_state, obs, stats: EpisodeSta
     mesh = venv.mesh
     rows = []
     for t in range(num_steps):
-        if action_noise is not None:
-            noise = action_noise[t]
-        elif deterministic:
-            noise = None
-        else:
-            noise = mesh.local(torch.randn((mesh.world * obs.shape[0], venv.action_dim),
-                                           generator=venv.generator, device=obs.device))
-        action, log_p = policy_action(policy, obs, deterministic, venv.generator, noise)
-        value = policy.value(obs)
-        env_state, out = venv.step(env_state, action,
-                                   None if env_draws is None else env_draws[t])
-        stats = stats.update(out.done, out.ep_return, out.ep_len)
-        rows.append((
-            Transition(obs=obs, actions=action, log_probs=log_p, values=value,
-                       rewards=out.reward, masks=1.0 - out.done.to(torch.float32),
-                       bad_masks=1.0 - out.timeout.to(torch.float32)),
-            out.hit, out.done, out.ep_return, out.ep_len,
-        ))
-        obs = out.obs
+        with span("rollout.step"):
+            if action_noise is not None:
+                noise = action_noise[t]
+            elif deterministic:
+                noise = None
+            else:
+                noise = mesh.local(torch.randn((mesh.world * obs.shape[0], venv.action_dim),
+                                               generator=venv.generator, device=obs.device))
+            with span("policy"):
+                action, log_p = policy_action(policy, obs, deterministic, venv.generator, noise)
+                value = policy.value(obs)
+            env_state, out = venv.step(env_state, action,
+                                       None if env_draws is None else env_draws[t])
+            stats = stats.update(out.done, out.ep_return, out.ep_len)
+            rows.append((
+                Transition(obs=obs, actions=action, log_probs=log_p, values=value,
+                           rewards=out.reward, masks=1.0 - out.done.to(torch.float32),
+                           bad_masks=1.0 - out.timeout.to(torch.float32)),
+                out.hit, out.done, out.ep_return, out.ep_len,
+            ))
+            obs = out.obs
     traj = Transition(*(torch.stack(x) for x in zip(*(r[0] for r in rows))))
     hits, ep_done, ep_return, ep_len = (torch.stack(x) for x in zip(*(r[1:] for r in rows)))
     aux = dict(hits=hits.sum(), ep_done=ep_done, ep_return=ep_return, ep_len=ep_len)

@@ -48,6 +48,7 @@ from steppingstone_tpu_torch.physics.engine import PhysicsState
 from steppingstone_tpu_torch.physics.model import RobotModel, tensor
 from steppingstone_tpu_torch.physics.robots import cassie as cassie_mod
 from steppingstone_tpu_torch.physics.robots import walker3d as walker_mod
+from steppingstone_tpu_torch.tracing import span
 
 CONTROL_DT = engine.SIM_DT * engine.SUBSTEPS  # 60 Hz
 
@@ -523,8 +524,9 @@ class StepperEnv:
                            update_terrain=hit, last_hit=last_hit)
 
         # ---- auto-reset ------------------------------------------------------
-        reset_state, reset_obs = self.reset(state.cur, state.mirror_enabled,
-                                            draws=draws.reset)
+        with span("env.reset"):
+            reset_state, reset_obs = self.reset(state.cur, state.mirror_enabled,
+                                                draws=draws.reset)
         out_state = _where(done, reset_state, mid)
         # injected params persist across auto-resets
         out_state = out_state._replace(robot_power=mid.robot_power,

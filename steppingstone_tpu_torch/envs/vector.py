@@ -21,6 +21,7 @@ from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.stepper import (EnvState, EnvStepDraws, ResetDraws, StepperEnv,
                                                   create_temp_states)
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
+from steppingstone_tpu_torch.tracing import span
 
 
 class VecEnv:
@@ -54,9 +55,10 @@ class VecEnv:
         return self.env.reset(cur, draws=draws)
 
     def step(self, state: EnvState, actions: torch.Tensor, draws: EnvStepDraws | None = None):
-        if draws is None:
-            draws = self.env.draw_step(state.cur, self.generator, self.mesh)
-        return self.env.step(state, actions, draws=draws)
+        with span("env.step"):
+            if draws is None:
+                draws = self.env.draw_step(state.cur, self.generator, self.mesh)
+            return self.env.step(state, actions, draws=draws)
 
     def create_temp_states(self, state: EnvState) -> torch.Tensor:
         """(num_envs, GRID * GRID, obs_dim) candidate observations."""

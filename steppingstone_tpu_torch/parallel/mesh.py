@@ -37,6 +37,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from steppingstone_tpu_torch import tracing
+
 ENV_AXIS = "env"
 
 
@@ -135,32 +137,56 @@ def maybe_initialize_distributed(backend: str | None = None, device=None) -> boo
 
 class CollectiveClock:
     """Time, calls and bytes of this process's collectives, by kind. Off by
-    default; when on, each collective is timed on the host clock between
-    two synchronizations of its tensor's device, so the time is the
-    collective's own and not the work queued before it."""
+    default; when on, each collective is timed by a pair of CUDA events on
+    its tensor's current stream (the host clock for a host tensor), so the
+    time is the collective's own and not the work queued before it, and the
+    clock never synchronizes the device: the events are read when `seconds`
+    is. On or off, each collective is a `collective.<kind>` span of the
+    span recorder (tracing.py) with `collective.<kind>.calls` and
+    `.bytes` counters."""
 
     def __init__(self):
         self.enabled = False
         self.reset()
 
     def reset(self) -> None:
-        self.seconds = collections.defaultdict(float)
+        self._seconds = collections.defaultdict(float)
+        self._pending = []  # (kind, start event, end event) not read yet
         self.calls = collections.defaultdict(int)
         self.bytes = collections.defaultdict(int)
 
+    @property
+    def seconds(self) -> dict:
+        """Seconds by kind; reading them waits for the pending events."""
+        for kind, start, end in self._pending:
+            end.synchronize()
+            self._seconds[kind] += start.elapsed_time(end) / 1e3
+        self._pending.clear()
+        return self._seconds
+
     @contextlib.contextmanager
     def time(self, kind: str, x: torch.Tensor):
-        if not self.enabled:
-            yield
-            return
-        sync = torch.cuda.synchronize if x.is_cuda else (lambda *_: None)
-        sync(x.device)
-        t0 = time.perf_counter()
-        yield
-        sync(x.device)
-        self.seconds[kind] += time.perf_counter() - t0
+        name = f"collective.{kind}"
+        nbytes = x.numel() * x.element_size()
+        with tracing.span(name):
+            tracing.count(f"{name}.calls")
+            tracing.count(f"{name}.bytes", nbytes)
+            if not self.enabled:
+                yield
+                return
+            if x.is_cuda:
+                stream = torch.cuda.current_stream(x.device)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record(stream)
+                yield
+                end.record(stream)
+                self._pending.append((kind, start, end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self._seconds[kind] += time.perf_counter() - t0
         self.calls[kind] += 1
-        self.bytes[kind] += x.numel() * x.element_size()
+        self.bytes[kind] += nbytes
 
 
 CLOCK = CollectiveClock()

@@ -46,6 +46,7 @@ from steppingstone_tpu_torch.physics import engine
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.dynamics import GRAVITY, _ancestor_mask
 from steppingstone_tpu_torch.physics.model import RobotModel
+from steppingstone_tpu_torch.tracing import span
 
 # compile-time maxima of csrc/control_step.cu
 MAXB, MAXC, MAXS = 32, 16, 32
@@ -340,47 +341,48 @@ class ControlStepKernel:
         body in place of control_step_warp, for timing the two. Returns
         new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers check
         inputs (`control_step` does)."""
-        self.build()
-        model_key = (model, cparams, substeps)
-        md = self._models.get(model_key)
-        if md is None:
-            md = self._models[model_key] = _model_data(model, cparams, substeps)
-        pd, plank = target_t is not None, support_hy is not None
-        rot = model.joint_rot is not None
-        name = variant(pd, plank, rot)
-        B, S = q_t.shape[1], stones_t.shape[0] // 6
-        outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
-                for n in (model.nq, model.ndof, model.njoints + 7)]
-        ptr = lambda t: None if t is None else t.data_ptr()
-        # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
-        # plain version compares against the same sum
-        hy_margin = float(support_hy) + cparams.margin if plank else 0.0
-        jrot, rot_rows = None, 0
-        if rot:
-            key = (model, q_t.device)
-            if key not in self._rotations:
-                self._rotations[key] = _joint_rotations(model, q_t.device)
-            jrot, rot_rows = self._rotations[key]
-        with torch.cuda.device(q_t.device):
-            stream = torch.cuda.current_stream(q_t.device).cuda_stream
-            if thread_design:
-                name += "@thread"
-                err = self._lib.control_step_launch_thread(
-                    ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
-                    *(ptr(t) for t in (jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
-                                       stone_radius, use_ground, *outs)), stream)
-            else:
-                md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
-                                                                   q_t.device)
-                ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
-                       stone_radius, use_ground)
-                err = self._lib.control_step_launch(
-                    ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
-                    nlev, npairs, *(ptr(t) for t in ins + tuple(outs)), stream)
-        if err != 0:
-            raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
-        self.launches[name] += 1
-        return outs
+        with span("physics.launch"):
+            self.build()
+            model_key = (model, cparams, substeps)
+            md = self._models.get(model_key)
+            if md is None:
+                md = self._models[model_key] = _model_data(model, cparams, substeps)
+            pd, plank = target_t is not None, support_hy is not None
+            rot = model.joint_rot is not None
+            name = variant(pd, plank, rot)
+            B, S = q_t.shape[1], stones_t.shape[0] // 6
+            outs = [torch.empty((n, B), dtype=torch.float32, device=q_t.device)
+                    for n in (model.nq, model.ndof, model.njoints + 7)]
+            ptr = lambda t: None if t is None else t.data_ptr()
+            # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
+            # plain version compares against the same sum
+            hy_margin = float(support_hy) + cparams.margin if plank else 0.0
+            jrot, rot_rows = None, 0
+            if rot:
+                key = (model, q_t.device)
+                if key not in self._rotations:
+                    self._rotations[key] = _joint_rotations(model, q_t.device)
+                jrot, rot_rows = self._rotations[key]
+            with torch.cuda.device(q_t.device):
+                stream = torch.cuda.current_stream(q_t.device).cuda_stream
+                if thread_design:
+                    name += "@thread"
+                    err = self._lib.control_step_launch_thread(
+                        ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
+                        *(ptr(t) for t in (jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
+                                           stone_radius, use_ground, *outs)), stream)
+                else:
+                    md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
+                                                                       q_t.device)
+                    ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
+                           stone_radius, use_ground)
+                    err = self._lib.control_step_launch(
+                        ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
+                        nlev, npairs, *(ptr(t) for t in ins + tuple(outs)), stream)
+            if err != 0:
+                raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
+            self.launches[name] += 1
+            return outs
 
 
 def to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground):
@@ -448,36 +450,37 @@ def control_step(
     tensors run the plain version; CUDA tensors run K1, K2 (support_hy),
     K3 (target), K4 (a model with joint_rot) or their combination.
     Operands with no batch axis are broadcast."""
-    B, dev = q.shape[0], q.device
-    tau = _batched(tau, B, 1, torch.float32, dev)
-    stones = _batched(stones, B, 2, torch.float32, dev)
-    stone_radius = _batched(stone_radius, B, 0, torch.float32, dev)
-    use_ground = _batched(use_ground, B, 0, torch.bool, dev)
-    if target is not None:
-        target = _batched(target, B, 1, torch.float32, dev)
-        power = _batched(1.0 if power is None else power, B, 0, torch.float32, dev)
-    _check_inputs(model, q, qd, tau, stones, stone_radius, use_ground, target, power)
-    check_model(model, stones.shape[1])
-    if dev.type == "cpu":
-        st, info = engine._step_scan(
-            model, engine.PhysicsState(q, qd), tau, stones, stone_radius, use_ground,
-            cparams, substeps, pd=None if target is None else (target, power),
-            support_hy=support_hy)
-        return st.q, st.qd, info
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    q_t, qd_t, info = CONTROL_STEP.launch(
-        model, *to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground),
-        cparams, substeps, target_t=None if target is None else target.t().contiguous(),
-        power=power, support_hy=support_hy)
-    nj = model.njoints
-    return q_t.t().contiguous(), qd_t.t().contiguous(), engine.StepInfo(
-        foot_contact=(info[0:2] > 0.0).t(),
-        foot_stone=info[2:4].t().to(torch.long),
-        foot_normal_force=info[4:6].t(),
-        joint_at_limit=(info[6:6 + nj] > 0.5).t(),
-        contact_force_sum=info[6 + nj].clone(),
-    )
+    with span("physics.entry"):
+        B, dev = q.shape[0], q.device
+        tau = _batched(tau, B, 1, torch.float32, dev)
+        stones = _batched(stones, B, 2, torch.float32, dev)
+        stone_radius = _batched(stone_radius, B, 0, torch.float32, dev)
+        use_ground = _batched(use_ground, B, 0, torch.bool, dev)
+        if target is not None:
+            target = _batched(target, B, 1, torch.float32, dev)
+            power = _batched(1.0 if power is None else power, B, 0, torch.float32, dev)
+        _check_inputs(model, q, qd, tau, stones, stone_radius, use_ground, target, power)
+        check_model(model, stones.shape[1])
+        if dev.type == "cpu":
+            st, info = engine._step_scan(
+                model, engine.PhysicsState(q, qd), tau, stones, stone_radius, use_ground,
+                cparams, substeps, pd=None if target is None else (target, power),
+                support_hy=support_hy)
+            return st.q, st.qd, info
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        q_t, qd_t, info = CONTROL_STEP.launch(
+            model, *to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground),
+            cparams, substeps, target_t=None if target is None else target.t().contiguous(),
+            power=power, support_hy=support_hy)
+        nj = model.njoints
+        return q_t.t().contiguous(), qd_t.t().contiguous(), engine.StepInfo(
+            foot_contact=(info[0:2] > 0.0).t(),
+            foot_stone=info[2:4].t().to(torch.long),
+            foot_normal_force=info[4:6].t(),
+            joint_at_limit=(info[6:6 + nj] > 0.5).t(),
+            contact_force_sum=info[6 + nj].clone(),
+        )
 
 
 def control_step_bytes(model: RobotModel, n_stones: int, pd: bool = False) -> int:

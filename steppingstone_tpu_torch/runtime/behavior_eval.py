@@ -40,6 +40,7 @@ from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.stepper import EnvState
 from steppingstone_tpu_torch.envs.vector import VecEnv
 from steppingstone_tpu_torch.runtime.enjoy import load_params, policy_from_state
+from steppingstone_tpu_torch.tracing import span
 
 # the per-step records of an entry, in the order `evaluate_entry` stacks them
 RECORDS = ("reward", "hit", "done", "timeout", "ep_return", "ep_len", "ns_pre")
@@ -65,17 +66,22 @@ def evaluate_entry(venv: VecEnv, policy: ActorCritic, cur: terr.CurriculumState,
     if given, is called before every step with the done flags of the step
     before (None before the first) and returns that step's EnvStepDraws.
     The records stay on the device until the last step."""
-    state, obs = venv.reset(cur, draws=reset_draws)
-    rows, done = [], None
-    for _ in range(steps):
-        ns_pre = state.next_step_index.clone()
-        action = policy.action_mean(obs)
-        state, out = venv.step(state, action,
-                               draws=None if step_draws is None else step_draws(done))
-        obs, done = out.obs, out.done
-        rows.append((out.reward, out.hit, out.done, out.timeout, out.ep_return, out.ep_len,
-                     ns_pre))
-    cols = [torch.stack(c).cpu().numpy() for c in zip(*rows)]
+    with span("eval.entry"):
+        with span("eval.reset"):
+            state, obs = venv.reset(cur, draws=reset_draws)
+        rows, done = [], None
+        for _ in range(steps):
+            with span("eval.step"):
+                ns_pre = state.next_step_index.clone()
+                with span("policy"):
+                    action = policy.action_mean(obs)
+                state, out = venv.step(state, action,
+                                       draws=None if step_draws is None else step_draws(done))
+                obs, done = out.obs, out.done
+                rows.append((out.reward, out.hit, out.done, out.timeout, out.ep_return,
+                             out.ep_len, ns_pre))
+        with span("eval.records"):
+            cols = [torch.stack(c).cpu().numpy() for c in zip(*rows)]
     return dict(zip(RECORDS, cols)), state
 
 

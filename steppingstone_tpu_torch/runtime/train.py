@@ -16,8 +16,9 @@ threshold coupling of value-only rounds), the deterministic test fleet
 every `test_interval` updates, `advance_on_test`, the logstd re-inflation
 and anneal, the NaN watchdog, checkpoints (numbered, latest, best) with
 full resume, episodes.csv, progress.csv, the sampling-probability and
-value-grid pickles (and their heatmap), and a torch.profiler trace of
-updates 10-13.
+value-grid pickles (and their heatmap), and with `profile_dir` a
+torch.profiler trace of updates 10-12 (from 0) with the program's spans
+(tracing.py) on a track of their own.
 
 Over the ranks of a torch.distributed job (parallel/mesh.py) the env
 fleet is sharded and the learner replicated: each rank steps
@@ -63,6 +64,7 @@ from steppingstone_tpu_torch.runtime.enjoy import load_params, policy_from_state
 from steppingstone_tpu_torch.runtime.loggers import ConsoleCSVLogger
 from steppingstone_tpu_torch.runtime.schedules import exponential_decay, linear_decay
 from steppingstone_tpu_torch.runtime.torch_import import REFERENCE_MODELS
+from steppingstone_tpu_torch.tracing import RECORDER, add_to_chrome_trace, span
 
 
 class IterationDraws(NamedTuple):
@@ -184,23 +186,25 @@ class Trainer:
         Returns (env_state, obs, stats, batch, aux); aux is the rollout's,
         plus its rewards (T, N)."""
         cfg = self.cfg
-        env_state, obs, stats, traj, aux = collect_rollout(
-            self.venv, policy, env_state, obs, stats, cfg.num_steps, deterministic=value_only,
-            action_noise=draws.action_noise, env_draws=draws.env_draws)
-        with torch.no_grad():
-            last_value = policy.value(obs)                                  # (N, 1)
-        values = torch.cat([traj.values[..., 0], last_value.T], dim=0)      # (T+1, N)
-        ones = torch.ones_like(traj.masks[:1])
-        masks = torch.cat([ones, traj.masks], dim=0)
-        bad_masks = torch.cat([ones, traj.bad_masks], dim=0)
-        returns, adv = compute_gae(traj.rewards, values, masks, bad_masks, cfg.gamma,
-                                   cfg.gae_lambda)
-        adv = normalize_advantages(adv, mesh=self.mesh)
-        T, N = traj.rewards.shape
-        flat = lambda x: x.reshape(T * N, *x.shape[2:])
-        batch = dict(obs=flat(traj.obs), actions=flat(traj.actions),
-                     log_probs=flat(traj.log_probs), values=flat(traj.values),
-                     returns=flat(returns[..., None]), adv=flat(adv[..., None]))
+        with span("trainer.rollout"):
+            env_state, obs, stats, traj, aux = collect_rollout(
+                self.venv, policy, env_state, obs, stats, cfg.num_steps, deterministic=value_only,
+                action_noise=draws.action_noise, env_draws=draws.env_draws)
+            with span("rollout.gae"):
+                with torch.no_grad():
+                    last_value = policy.value(obs)                              # (N, 1)
+                values = torch.cat([traj.values[..., 0], last_value.T], dim=0)  # (T+1, N)
+                ones = torch.ones_like(traj.masks[:1])
+                masks = torch.cat([ones, traj.masks], dim=0)
+                bad_masks = torch.cat([ones, traj.bad_masks], dim=0)
+                returns, adv = compute_gae(traj.rewards, values, masks, bad_masks, cfg.gamma,
+                                           cfg.gae_lambda)
+                adv = normalize_advantages(adv, mesh=self.mesh)
+                T, N = traj.rewards.shape
+                flat = lambda x: x.reshape(T * N, *x.shape[2:])
+                batch = dict(obs=flat(traj.obs), actions=flat(traj.actions),
+                             log_probs=flat(traj.log_probs), values=flat(traj.values),
+                             returns=flat(returns[..., None]), adv=flat(adv[..., None]))
         return env_state, obs, stats, batch, dict(aux, rewards=traj.rewards)
 
     def update(self, policy: ActorCritic, opt_state, batch: dict, lr, value_only: bool = False,
@@ -415,21 +419,27 @@ class Trainer:
         self.start_update = start_update
         self.update_times = []
 
-        prof = None
+        prof, recording = None, False  # recording: this loop turned the span recorder on
         for j in range(start_update, cfg.num_updates):
-            # ---- profiling ------------------------------------------------
+            # ---- profiling: updates 10-12, the program's spans on a track
+            # of their own beside the profiler's events ---------------------
             if cfg.profile_dir is not None and j == 10:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=activities)
                 prof.start()
+                recording = not RECORDER.on
+                if recording:
+                    RECORDER.start()
             if prof is not None and j == 13:
+                spans = RECORDER.stop()[0] if recording else []
                 prof.stop()
                 os.makedirs(cfg.profile_dir, exist_ok=True)
                 name = "trace.json" if self.mesh.world == 1 else f"trace_rank{self.mesh.rank}.json"
                 prof.export_chrome_trace(os.path.join(cfg.profile_dir, name))
-                prof = None
+                add_to_chrome_trace(os.path.join(cfg.profile_dir, name), spans)
+                prof, recording = None, False
                 print(f"profiler trace written to {cfg.profile_dir}", flush=True)
 
             # ---- LR schedule (reference train.py:213-220) ------------------
@@ -630,6 +640,8 @@ class Trainer:
                                           rollout_s=t1 - t0, update_s=t2 - t1, test_s=t3 - t2))
 
         if prof is not None:
+            if recording:
+                RECORDER.stop()
             prof.stop()
         if logger is not None:
             logger.close()
