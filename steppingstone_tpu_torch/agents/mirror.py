@@ -28,13 +28,29 @@ class MirrorSpec(NamedTuple):
         return MirrorSpec(*env.get_mirror_indices())
 
 
+_CONSTANTS: dict = {}  # (indices, width, device) -> (perm, sign) on that device
+
+
+def _constants(neg, right, left, width: int, device: torch.device) -> tuple:
+    """The gather order and the signs of a mirror over `width` features, as
+    tensors on `device`: made on the first call for a spec, width and
+    device, then the same tensors (no copy to the device a call)."""
+    key = (tuple(map(int, neg)), tuple(map(int, right)), tuple(map(int, left)), width, device)
+    got = _CONSTANTS.get(key)
+    if got is None:
+        sign = np.ones(width, dtype=np.float32)
+        sign[neg] = -1.0
+        perm = np.arange(width)
+        perm[np.concatenate([right, left])] = perm[np.concatenate([left, right])]
+        got = _CONSTANTS[key] = (torch.as_tensor(perm, device=device),
+                                 torch.as_tensor(sign, device=device))
+    return got
+
+
 def _mirror_array(x: torch.Tensor, neg, right, left) -> torch.Tensor:
     """Sign flips + left/right swap along the last axis."""
-    sign = np.ones(x.shape[-1], dtype=np.float32)
-    sign[neg] = -1.0
-    perm = np.arange(x.shape[-1])
-    perm[np.concatenate([right, left])] = perm[np.concatenate([left, right])]
-    return x[..., torch.as_tensor(perm, device=x.device)] * torch.as_tensor(sign, device=x.device)
+    perm, sign = _constants(neg, right, left, x.shape[-1], x.device)
+    return x[..., perm] * sign
 
 
 def mirror_obs(spec: MirrorSpec, obs: torch.Tensor) -> torch.Tensor:

@@ -16,16 +16,29 @@ replicated and the minibatches stay global: every rank draws the same
 permutations, takes the rows it holds, divides its sums by the global
 counts and all-reduces the flat gradient, so each step is the
 single-process step.
+
+Every minibatch step reads and writes only buffers that live as long as
+the step (`_StepBuffers`): the batch, the update's row order, the lr and
+Adam's state are copied in once per update, and each step picks its rows
+by a step index on the device and writes its metrics into a history. On a
+CUDA device in one process that step is captured once as a CUDA graph
+(after a few eager steps on a side stream) and replayed for every later
+minibatch step, of this update and the next ones; the graph is kept per
+policy and captured anew when the batch's shapes, the config, value_only
+or the parameters' storage change. On the CPU and over several ranks the
+same step runs eagerly. The arithmetic is the same on every path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from steppingstone_tpu_torch import tracing
 from steppingstone_tpu_torch.agents import distributions as dist
 from steppingstone_tpu_torch.agents.mirror import MirrorSpec, mirror_minibatch
 from steppingstone_tpu_torch.agents.networks import (
@@ -200,6 +213,136 @@ def local_minibatches(mesh: Mesh, rows: torch.Tensor, num_mini_batch: int,
     return local.split(counts.tolist())
 
 
+def _captures(device: torch.device, mesh: Mesh) -> bool:
+    """Whether `ppo_update` replays a captured step: on a CUDA device in one
+    process. Over ranks (or with a process group of one) each rank holds its
+    own ragged share of a minibatch and the all-reduce stays outside any
+    graph, so the step runs eagerly, as it does on the CPU."""
+    return device.type == "cuda" and mesh.world == 1 and not mesh.distributed
+
+
+class _StepBuffers:
+    """What one minibatch step reads and writes, in tensors that live as long
+    as the step does (and a graph captured from it): the batch, the
+    update's row order (steps, mbs), the lr, Adam's count, mu and nu, the
+    step index and a (steps, 6) history of each step's PPOMetrics. `load`
+    fills them for an update, `step` runs one minibatch step on them and
+    `result` reads the update's outcome."""
+
+    def __init__(self, policy: ActorCritic, cfg: PPOConfig, batch: dict, value_only: bool,
+                 steps: int, mbs: int, mesh: Mesh):
+        dev = batch["obs"].device
+        self.cfg, self.value_only, self.mesh, self.mbs = cfg, value_only, mesh, mbs
+        # the tensors, not the module: a graph cache keyed weakly by the
+        # policy must not hold it
+        self.params = list(policy.parameters())
+        n = sum(p.numel() for p in self.params)
+        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in batch.items()}
+        self.perms = torch.empty((steps, mbs), dtype=torch.long, device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mu = torch.zeros(n, device=dev)
+        self.nu = torch.zeros(n, device=dev)
+        self.index = torch.zeros(1, dtype=torch.long, device=dev)
+        self.history = torch.zeros((steps, len(PPOMetrics._fields)), device=dev)
+
+    def load(self, batch: dict, perms: torch.Tensor | None, opt_state: AdamState, lr) -> None:
+        """Copies an update's inputs in (`perms` None: the rows are given to
+        each step); none of these synchronizes with the host."""
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        if perms is not None:
+            self.perms.copy_(perms.reshape(self.perms.shape))
+        self.lr.fill_(lr)
+        self.count.copy_(opt_state.count)
+        self.mu.copy_(opt_state.mu)
+        self.nu.copy_(opt_state.nu)
+        self.index.zero_()
+
+    def step(self, policy: ActorCritic, rows: torch.Tensor | None = None) -> None:
+        """One minibatch step on rows `rows` of the batch, by default the row
+        order's row at the step index; Adam's state, the parameters and the
+        history row are written in place and the index advances."""
+        if rows is None:
+            rows = self.perms.index_select(0, self.index).view(-1)
+        mb = {k: v[rows] for k, v in self.batch.items()}
+        opt, m = _minibatch_step(policy, self.params, AdamState(self.count, self.mu, self.nu),
+                                 self.cfg, mb, self.lr, self.value_only, self.mesh, self.mbs)
+        self.count.copy_(opt.count)
+        self.mu.copy_(opt.mu)
+        self.nu.copy_(opt.nu)
+        self.history.index_copy_(0, self.index, torch.stack(m).view(1, -1))
+        self.index.add_(1)
+
+    def result(self) -> tuple:
+        """(AdamState, PPOMetrics averaged over the steps), copies that share
+        no storage with the buffers; each mean over a contiguous copy of its
+        column, as `torch.stack(...).mean()` takes it."""
+        metrics = PPOMetrics(*(self.history[:, j].contiguous().mean()
+                               for j in range(self.history.shape[1])))
+        return AdamState(self.count.clone(), self.mu.clone(), self.nu.clone()), metrics
+
+
+GRAPH_WARMUP_STEPS = 3  # eager steps on a side stream before a capture (torch.cuda.graphs)
+
+
+class _GraphedStep:
+    """One minibatch step captured as a CUDA graph over `_StepBuffers`: the
+    first GRAPH_WARMUP_STEPS calls run the step eagerly on a side stream, the
+    next captures it and replays it, every later call replays it. Each call
+    is one real step of the update."""
+
+    def __init__(self, key: tuple, buffers: _StepBuffers):
+        self.key, self.buffers, self.graph, self.warm = key, buffers, None, 0
+        self.side = torch.cuda.Stream(buffers.lr.device)
+
+    def __call__(self, policy: ActorCritic) -> None:
+        if self.graph is None and self.warm < GRAPH_WARMUP_STEPS:
+            main = torch.cuda.current_stream(self.buffers.lr.device)
+            self.side.wait_stream(main)
+            with torch.cuda.stream(self.side), span("ppo.minibatch"):
+                self.buffers.step(policy)
+            main.wait_stream(self.side)
+            self.warm += 1
+            return
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with span("ppo.graph.capture"), torch.cuda.graph(graph):
+                self.buffers.step(policy)
+            self.graph = graph
+            tracing.count("ppo.graph.captures")
+        with span("ppo.minibatch"):
+            self.graph.replay()
+        tracing.count("ppo.graph.replays")
+
+
+# policy -> {value_only: _GraphedStep}; an entry goes with its policy
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _graph_key(policy: ActorCritic, cfg: PPOConfig, batch: dict, value_only: bool) -> tuple:
+    """What a captured step depends on and the code can observe: the config
+    (by identity), value_only, the device, the batch's field shapes and
+    dtypes, and the parameters' storage."""
+    return (cfg, value_only, batch["obs"].device,
+            tuple((k, v.shape, v.dtype) for k, v in batch.items()),
+            tuple(p.data_ptr() for p in policy.parameters()))
+
+
+def _graphed_step(policy: ActorCritic, cfg: PPOConfig, batch: dict, value_only: bool,
+                  steps: int, mbs: int) -> _GraphedStep:
+    """The policy's captured step for these inputs, made anew when its key
+    (`_graph_key`) changed."""
+    key = _graph_key(policy, cfg, batch, value_only)
+    graphs = _GRAPHS.setdefault(policy, {})
+    got = graphs.get(value_only)
+    if got is None or got.key != key:
+        got = graphs[value_only] = None  # the old graph and its pool go before the new ones come
+        got = graphs[value_only] = _GraphedStep(
+            key, _StepBuffers(policy, cfg, batch, value_only, steps, mbs, SINGLE))
+    return got
+
+
 def ppo_update(policy: ActorCritic, opt_state: AdamState, cfg: PPOConfig, batch: dict, lr,
                value_only: bool = False, perms: torch.Tensor | None = None,
                generator: torch.Generator | None = None, mesh: Mesh = SINGLE,
@@ -223,18 +366,21 @@ def ppo_update(policy: ActorCritic, opt_state: AdamState, cfg: PPOConfig, batch:
         if perms is None:
             perms = torch.stack([torch.randperm(B, generator=generator, device=dev)[:used]
                                  for _ in range(cfg.ppo_epoch)])
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        params = list(policy.parameters())
-        history = []
+        steps = cfg.ppo_epoch * cfg.num_mini_batch
+        if _captures(dev, mesh):
+            step = _graphed_step(policy, cfg, batch, value_only, steps, mbs)
+            step.buffers.load(batch, perms, opt_state, lr)
+            for _ in range(steps):
+                step(policy)
+            return step.buffers.result()
+        buffers = _StepBuffers(policy, cfg, batch, value_only, steps, mbs, mesh)
+        buffers.load(batch, perms if mesh.world == 1 else None, opt_state, lr)
         for epoch in range(cfg.ppo_epoch):
             if mesh.world == 1:
-                minibatches = perms[epoch].view(cfg.num_mini_batch, mbs)
+                minibatches = [None] * cfg.num_mini_batch
             else:
                 minibatches = local_minibatches(mesh, perms[epoch], cfg.num_mini_batch, num_envs)
             for rows in minibatches:
                 with span("ppo.minibatch"):
-                    mb = {k: v[rows] for k, v in batch.items()}
-                    opt_state, m = _minibatch_step(policy, params, opt_state, cfg, mb, lr,
-                                                   value_only, mesh, mbs)
-                history.append(m)
-        return opt_state, PPOMetrics(*(torch.stack(x).mean() for x in zip(*history)))
+                    buffers.step(policy, rows)
+        return buffers.result()

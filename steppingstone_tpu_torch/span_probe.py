@@ -19,9 +19,14 @@ JSON line per setting:
 - `host_ms`: each span path's host time (and self time) per control step
   or per minibatch step, and the host syncs inside it per step;
 - `metrics`: policy_host_ms, env_step_host_ms, physics_entry_host_ms and
-  syncs_per_env_step per control step, ppo_step_host_ms and
-  syncs_per_ppo_step per minibatch step, reset_share (env.reset over
-  env.step);
+  syncs_per_env_step per control step, ppo_step_host_ms,
+  syncs_per_ppo_step and graph_replays_per_ppo_step (the replays of the
+  captured minibatch step, agents/ppo.py: 1.0 on the card once captured, 0
+  on the CPU) per minibatch step, reset_share (env.reset over env.step).
+  On the card slice 2's update replays the captured step: `ppo.minibatch`
+  spans one replay and has no child; `ppo.forward`, `ppo.backward` and
+  `ppo.optimizer` exist only on the eager path (the CPU, several ranks)
+  and in the warm-up and capture of the first update;
 - `sync_sites`: syncs by source line; `idle_ms`: slice 2's device idle
   time by the innermost span open over it (`<session>/<path>`, `-` outside
   every span) and `idle_attributed`, the share inside a span;
@@ -275,6 +280,7 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
         ppo_step_host_ms=host[mb]["ms"],
         syncs_per_env_step=host[step]["syncs"],
         syncs_per_ppo_step=host[mb]["syncs"],
+        graph_replays_per_ppo_step=counters.get("ppo.graph.replays", 0) / minibatches,
         reset_share=host[f"{step}/env.step/env.reset"]["ms"] / host[f"{step}/env.step"]["ms"])
     return _finish(name, out, slice1, slice2, plain,
                    dict(control_steps=T, minibatch_steps=minibatches, envs=N))
