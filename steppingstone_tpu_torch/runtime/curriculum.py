@@ -25,6 +25,8 @@ import torch
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.stepper import ResetDraws, StepperEnv
 from steppingstone_tpu_torch.envs.vector import VecEnv
+from steppingstone_tpu_torch.tracing import count as trace_count
+from steppingstone_tpu_torch.tracing import span
 
 EVAL_ENVS = 16        # the eval fleet's envs
 EVAL_STEPS = 160      # control steps of the eval rollout
@@ -58,23 +60,38 @@ class ValueGrid:
     @torch.no_grad()
     def __call__(self, policy, draws: ValueGridDraws | None = None):
         """(grid (GRID, GRID) normalized by max |grid| (+1e-8), count of
-        events (a 0-dim long tensor))."""
+        events (a 0-dim long tensor)). Spans: `curriculum.value_grid` >
+        `value_grid.step` (each control step) > `policy`, `env.step`,
+        `value_grid.candidates`, `value_grid.critic`,
+        `value_grid.accumulate`; counters `value_grid.candidate_rows` (the
+        candidate observations of a step) and `value_grid.events`."""
         venv = self.venv
-        cur = terr.default_curriculum(0, batch=venv.num_envs, device=venv.device)
-        state, obs = venv.reset(cur, None if draws is None else draws.reset)
-        grid = torch.zeros(terr.GRID * terr.GRID, device=venv.device)
-        count = torch.zeros((), dtype=torch.long, device=venv.device)
-        for t in range(self.max_steps):
-            action = policy.action_mean(obs)
-            state, out = venv.step(state, action, None if draws is None else draws.steps[t])
-            vals = policy.ensemble_values(venv.create_temp_states(state)).mean(dim=-1)  # (E, 121)
-            event = state.update_terrain
-            grid = grid + torch.where(event[:, None], vals, 0.0).sum(dim=0)
-            count = count + event.sum()
-            obs = out.obs
-        # normalize like the reference: metric /= max |metric| (train.py:354)
-        norm = grid / (grid.abs().max() + 1e-8)
-        self.last_count = int(count)
+        with span("curriculum.value_grid"):
+            cur = terr.default_curriculum(0, batch=venv.num_envs, device=venv.device)
+            state, obs = venv.reset(cur, None if draws is None else draws.reset)
+            grid = torch.zeros(terr.GRID * terr.GRID, device=venv.device)
+            count = torch.zeros((), dtype=torch.long, device=venv.device)
+            rows = venv.num_envs * terr.GRID * terr.GRID
+            for t in range(self.max_steps):
+                with span("value_grid.step"):
+                    with span("policy"):
+                        action = policy.action_mean(obs)
+                    state, out = venv.step(state, action,
+                                           None if draws is None else draws.steps[t])
+                    with span("value_grid.candidates"):
+                        temp = venv.create_temp_states(state)
+                    trace_count("value_grid.candidate_rows", rows)
+                    with span("value_grid.critic"):
+                        vals = policy.ensemble_values(temp).mean(dim=-1)  # (E, 121)
+                    with span("value_grid.accumulate"):
+                        event = state.update_terrain
+                        grid = grid + torch.where(event[:, None], vals, 0.0).sum(dim=0)
+                        count = count + event.sum()
+                    obs = out.obs
+            # normalize like the reference: metric /= max |metric| (train.py:354)
+            norm = grid / (grid.abs().max() + 1e-8)
+            self.last_count = int(count)
+            trace_count("value_grid.events", self.last_count)
         return norm.reshape(terr.GRID, terr.GRID), count
 
 
@@ -143,10 +160,11 @@ class AdaptiveSampling:
 
     def pre_update(self, env_state, policy, draws: ValueGridDraws | None = None):
         grid, _ = self.value_grid(policy, draws)
-        probs = torch.softmax(-self.scale * grid.reshape(-1), dim=0).reshape(grid.shape)
-        self.last_grid = grid.cpu().numpy()
-        self.last_probs = probs.cpu().numpy()
-        return self.venv.update_sample_prob(env_state, probs)
+        with span("curriculum.install"):
+            probs = torch.softmax(-self.scale * grid.reshape(-1), dim=0).reshape(grid.shape)
+            self.last_grid = grid.cpu().numpy()
+            self.last_probs = probs.cpu().numpy()
+            return self.venv.update_sample_prob(env_state, probs)
 
 
 class ThresholdSampling:
@@ -177,13 +195,15 @@ class ThresholdSampling:
             # geometry when one is given
             self.last_probs = None
             self.last_grid = None
-            return self.venv.update_curriculum(env_state, terr.N_LEVELS - 1, assist=assist)
+            with span("curriculum.install"):
+                return self.venv.update_curriculum(env_state, terr.N_LEVELS - 1, assist=assist)
         grid, _ = self.value_grid(policy, draws)
-        probs = torch.softmax(-self.scale * torch.abs(grid.reshape(-1) - self.threshold),
-                              dim=0).reshape(grid.shape)
-        self.last_grid = grid.cpu().numpy()
-        self.last_probs = probs.cpu().numpy()
-        return self.venv.update_sample_prob(env_state, probs)
+        with span("curriculum.install"):
+            probs = torch.softmax(-self.scale * torch.abs(grid.reshape(-1) - self.threshold),
+                                  dim=0).reshape(grid.shape)
+            self.last_grid = grid.cpu().numpy()
+            self.last_probs = probs.cpu().numpy()
+            return self.venv.update_sample_prob(env_state, probs)
 
     def post_test(self):
         """Uniform-round bookkeeping after the test rollout (train.py:473-482)."""

@@ -299,6 +299,50 @@ class Trainer:
                 env_state = strategy.install(env_state)
         return env_state, obs, test_state, test_obs
 
+    def curriculum(self, strategies: Strategies, policy: ActorCritic, env_state, test_state,
+                   update: int, first_sampling: bool,
+                   grid_draws: curr.ValueGridDraws | None = None):
+        """The curriculum hooks before update `update` (from 0), as `train`
+        runs them: the fixed curriculum's and the assist ladder's ramp
+        ticks, the threshold coupling of value-only rounds, the threshold
+        and adaptive strategies' pre-updates (a value grid and its install,
+        or threshold sampling's uniform round) and the mirrors onto the
+        test fleet (`test_state` None without one). `grid_draws` feeds the
+        value grid (None: its fleet's generator). Returns (env_state,
+        test_state, value_only, first_sampling)."""
+        cfg = self.cfg
+        fixed, assist, _, adaptive, threshold = strategies
+        with span("trainer.curriculum"):
+            if fixed:
+                env_state = fixed.tick(env_state)
+            if assist:
+                env_state = assist.tick(env_state)
+            # reference alternation: `update_values` every other update
+            value_only = cfg.use_value_update and update % 2 == 1
+            # reference threshold coupling (`train.py:224-228`): value-only
+            # rounds collect at uniform full range; the first non-value
+            # sampling round restricts to specialist band 0
+            if value_only and threshold:
+                env_state = self.venv.update_curriculum(env_state, terr.N_LEVELS - 1,
+                                                        assist=assist.frac if assist else None)
+            elif not value_only and threshold and first_sampling:
+                env_state = self.venv.update_specialist(env_state, 0)
+                first_sampling = False
+            if threshold:
+                env_state = threshold.pre_update(env_state, policy,
+                                                 assist=assist.frac if assist else None,
+                                                 draws=grid_draws)
+            if adaptive:
+                env_state = adaptive.pre_update(env_state, policy, draws=grid_draws)
+            # mirror the current level onto the deterministic test fleet
+            if cfg.test_curriculum and self.test_venv is not None and fixed:
+                test_state = self.test_venv.update_curriculum(test_state, fixed.frac)
+            # grid-mode runs: mirror the assist onto the test fleet (level
+            # stays 0, uniform), which the assist ladder gates on in `train`
+            if assist and self.test_venv is not None:
+                test_state = self.test_venv.update_assist(test_state, assist.frac)
+        return env_state, test_state, value_only, first_sampling
+
     def replicate_learner(self, *trees) -> None:
         """Rank 0's learner on every rank: the policy's parameters and the
         optimizer states, overwritten in place."""
@@ -454,39 +498,12 @@ class Trainer:
 
             # ---- curriculum pre-hooks -------------------------------------
             t_pre = time.perf_counter()
-            if fixed:
-                env_state = fixed.tick(env_state)
-            if assist:
-                env_state = assist.tick(env_state)
-            # reference alternation: `update_values` every other update
-            value_only = cfg.use_value_update and j % 2 == 1
-            # reference threshold coupling (`train.py:224-228`): value-only
-            # rounds collect at uniform full range; the first non-value
-            # sampling round restricts to specialist band 0
-            if value_only and threshold:
-                env_state = self.venv.update_curriculum(env_state, terr.N_LEVELS - 1,
-                                                        assist=assist.frac if assist else None)
-            elif not value_only and threshold and first_sampling:
-                env_state = self.venv.update_specialist(env_state, 0)
-                first_sampling = False
-            if threshold:
-                env_state = threshold.pre_update(env_state, policy,
-                                                 assist=assist.frac if assist else None)
-                if threshold.last_probs is not None and cfg.save_sampling_prob:
-                    sampling_prob_log.append(threshold.last_probs)
-                    value_grid_log.append(threshold.last_grid)
-            if adaptive:
-                env_state = adaptive.pre_update(env_state, policy)
-                if adaptive.last_probs is not None and cfg.save_sampling_prob:
-                    sampling_prob_log.append(adaptive.last_probs)
-                    value_grid_log.append(adaptive.last_grid)
-            # mirror the current level onto the deterministic test fleet
-            if cfg.test_curriculum and self.test_venv is not None and fixed:
-                test_state = self.test_venv.update_curriculum(test_state, fixed.frac)
-            # grid-mode runs: mirror the assist onto the test fleet (level
-            # stays 0, uniform), which the assist ladder gates on below
-            if assist and self.test_venv is not None:
-                test_state = self.test_venv.update_assist(test_state, assist.frac)
+            env_state, test_state, value_only, first_sampling = self.curriculum(
+                strategies, policy, env_state, test_state, j, first_sampling)
+            for strategy in (threshold, adaptive):
+                if strategy and strategy.last_probs is not None and cfg.save_sampling_prob:
+                    sampling_prob_log.append(strategy.last_probs)
+                    value_grid_log.append(strategy.last_grid)
             self._sync()
 
             # ---- the update -----------------------------------------------

@@ -32,7 +32,10 @@ The layer boundaries the port marks (PERF.md, section 3): `trainer.rollout`
 `physics.launch`; `trainer.rollout` > `rollout.gae`; `trainer.update` >
 `ppo.minibatch` > `ppo.forward`, `ppo.backward`, `ppo.optimizer`;
 `eval.entry` > `eval.reset`, `eval.step` (> `policy`, `env.step`),
-`eval.records`; `collective.<kind>` wherever a collective runs.
+`eval.records`; `trainer.curriculum` > `curriculum.value_grid` >
+`value_grid.step` (> `policy`, `env.step`, `value_grid.candidates`,
+`value_grid.critic`, `value_grid.accumulate`), `curriculum.install`;
+`collective.<kind>` wherever a collective runs.
 """
 
 from __future__ import annotations

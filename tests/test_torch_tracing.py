@@ -27,10 +27,12 @@ from steppingstone_tpu_torch import span_probe, tracing
 from steppingstone_tpu_torch.agents.ppo import init_optimizer
 from steppingstone_tpu_torch.agents.rollout import EpisodeStats
 from steppingstone_tpu_torch.envs import make_env
+from steppingstone_tpu_torch.envs import terrain as tterr
 from steppingstone_tpu_torch.envs.vector import VecEnv
 from steppingstone_tpu_torch.parallel import mesh as pmesh
 from steppingstone_tpu_torch.physics import step_kernel
 from steppingstone_tpu_torch.runtime import behavior_eval
+from steppingstone_tpu_torch.runtime import curriculum as tcurr
 from steppingstone_tpu_torch.runtime.config import TrainConfig, parse_cli
 from steppingstone_tpu_torch.runtime.train import Trainer
 from steppingstone_tpu_torch.tracing import RECORDER, Span
@@ -259,7 +261,8 @@ def test_profile_dir_trace_holds_the_programs_spans(tmp_path):
     mine = [e for e in events if e.get("cat") == "program"]
     roots = [e for e in mine if "/" not in e["args"]["path"]]
     assert [(e["name"], e["args"]["call"]) for e in roots] == [
-        (name, k) for k in range(3) for name in ("trainer.rollout", "trainer.update")]
+        (name, k) for k in range(3)
+        for name in ("trainer.curriculum", "trainer.rollout", "trainer.update")]
     assert sum(e["name"] == "rollout.step" for e in mine) == 3 * 2
     assert sum(e["name"] == "ppo.minibatch" for e in mine) == 3 * 2
     mm = [e for e in events if e.get("name") == "aten::addmm"]
@@ -358,3 +361,41 @@ def test_one_sync_each_on_the_card(card, op):
     assert [(s.name, s.syncs) for s in spans] == [(op, 1)]
     assert counters["syncs"] == 1
     assert os.path.basename(__file__) in next(k for k in counters if k.startswith("syncs@"))
+
+
+def test_value_grid_span_tree_and_counters(recorder):
+    """`Trainer.curriculum` on a threshold run's first grid round: the
+    value grid's spans nest under `trainer.curriculum` as PERF.md's layer
+    table says, its counters add up to B x 121 candidate rows a step and
+    to the grid's own event count, and no sync is counted (none on the
+    CPU, and the spans add none)."""
+    RECORDER.stop()
+    cfg = parse_cli(["env_name=Walker3DStepperEnv-v0", "num_processes=4", "episode_steps=16",
+                     "mini_batch_size=8", "num_tests=0", "seed=5", "use_threshold_sampling=True"])
+    trainer = Trainer(cfg, device="cpu")
+    envs, steps = 4, 6
+    trainer.value_grid = tcurr.make_value_grid_fn(trainer.env, max_steps=steps, n_envs=envs)
+    policy = trainer.init_params()
+    strategies = trainer.make_strategies()
+    state, _, _, _ = trainer.fresh_fleets(strategies)
+    strategies.threshold.uniform_sampling = False
+    RECORDER.start()
+    trainer.curriculum(strategies, policy, state, None, 1, False)
+    spans, counters = RECORDER.stop()
+    grid = "trainer.curriculum/curriculum.value_grid"
+    step = f"{grid}/value_grid.step"
+    assert _tree(spans) == {
+        "trainer.curriculum": 1, grid: 1, step: steps, f"{step}/policy": steps, f"{step}/env.step": steps,
+        f"{step}/env.step/physics.entry": steps, f"{step}/env.step/env.reset": steps,
+        f"{step}/value_grid.candidates": steps, f"{step}/value_grid.critic": steps,
+        f"{step}/value_grid.accumulate": steps, "trainer.curriculum/curriculum.install": 1}
+    kids = [s.name for s in spans if s.parent >= 0 and spans[s.parent].name == "value_grid.step"]
+    assert kids[:5] == ["policy", "env.step", "value_grid.candidates", "value_grid.critic",
+                        "value_grid.accumulate"]
+    assert counters["value_grid.candidate_rows"] == envs * tterr.GRID ** 2 * steps
+    assert counters["value_grid.events"] == trainer.value_grid.last_count
+    assert all(s.counts.get("value_grid.candidate_rows") == envs * tterr.GRID ** 2
+               for s in spans if s.name == "value_grid.step")
+    assert "syncs" not in counters and all(s.syncs == 0 for s in spans)
+    # off again: the spans are the shared null span
+    assert tracing.span("value_grid.step") is tracing.NULL_SPAN
