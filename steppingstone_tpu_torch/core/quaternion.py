@@ -39,9 +39,16 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+# (dtype, device) -> the conjugate's signs (1, -1, -1, -1), made on first use
+_CONJUGATE: dict = {}
+
+
 def inv(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a unit quaternion (the conjugate)."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    sign = _CONJUGATE.get((q.dtype, q.device))
+    if sign is None:
+        sign = _CONJUGATE[(q.dtype, q.device)] = q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * sign
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -239,9 +239,9 @@ def _foot_bodies(model: RobotModel) -> tuple:
     return right, left
 
 
-def _foot_xyz(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
-    """(B, 2, 3) world foot link origins."""
-    return km.forward_kinematics(model, q).pos[:, list(_foot_bodies(model))]
+def _foot_xyz(model: RobotModel, q: torch.Tensor, feet: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 3) world foot link origins; `feet` holds `_foot_bodies` on q's device."""
+    return km.forward_kinematics(model, q).pos[:, feet]
 
 
 def _broadcast(value, like: torch.Tensor) -> torch.Tensor:
@@ -310,6 +310,10 @@ class StepperEnv:
         low = torch.min(km.contact_points(model, kin)[0, :, 2]
                         - torch.as_tensor(model.contact_radius))
         self.standing_height = float(base[2] - low)
+        # constants a reset or step reads, on the device once (a step copies
+        # nothing from the host)
+        self._feet = torch.as_tensor(_foot_bodies(model), device=self.device)
+        self._root0 = torch.tensor([0.3, 0.0, self.standing_height + 0.015], device=self.device)
         # mirror transforms (sign, permutation) for obs and action
         neg_o, r_o, l_o, neg_a, r_a, l_a = self.get_mirror_indices()
 
@@ -384,8 +388,7 @@ class StepperEnv:
         lo = tensor(model, "joint_lower", dev)
         hi = tensor(model, "joint_upper", dev)
         qj = torch.clamp(self._q0j + noise[:, :nj], lo + 0.01, hi - 0.01)
-        root = torch.tensor([0.3, 0.0, self.standing_height + 0.015], device=dev)
-        q = torch.cat([root.expand(B, 3), self._quat0.expand(B, 4), qj], dim=1)
+        q = torch.cat([self._root0.expand(B, 3), self._quat0.expand(B, 4), qj], dim=1)
         qd = torch.zeros((B, model.ndof), device=dev)
         qd[:, 6:] = 0.1 * noise[:, nj:2 * nj]
         qd[:, 3:5] = 0.1 * noise[:, 2 * nj:2 * nj + 2]
@@ -403,7 +406,7 @@ class StepperEnv:
             ep_return=zeros,
             update_terrain=torch.zeros((B,), dtype=torch.bool, device=dev),
             foot_contact=torch.zeros((B, 2), dtype=torch.bool, device=dev),
-            foot_xyz=_foot_xyz(model, q),
+            foot_xyz=_foot_xyz(model, q, self._feet),
             phase=zeros,
             last_hit=izeros,
             mirror_enabled=mirror_enabled,
@@ -452,7 +455,7 @@ class StepperEnv:
             tau = engine.torque_actuation(model, action) * state.robot_power[:, None]
             phys, info = engine.step(model, state.phys, tau, state.terrain, r_eff,
                                      False, cfg.contact, support_hy=hy)
-        foot_xyz = _foot_xyz(model, phys.q)
+        foot_xyz = _foot_xyz(model, phys.q, self._feet)
 
         # ---- step-hit detection & terrain resampling -------------------------
         ns = state.next_step_index

@@ -101,10 +101,27 @@ def draw_stones(cur: CurriculumState, k: int, generator: torch.Generator | None 
                       r_g=rand())
 
 
+# float32 constants on a device, made on first use: (value or name, device) -> tensor
+_CONSTANTS: dict = {}
+
+
+def _constant(key, device: torch.device) -> torch.Tensor:
+    """A bound (a float) as a float32 scalar, or the grid's "yaw" or "pitch"
+    samples, on `device`: made on the first call for a key and device, then
+    the same tensor (a sampler copies nothing from the host)."""
+    got = _CONSTANTS.get((key, device))
+    if got is None:
+        value = {"yaw": YAW_SAMPLES, "pitch": PITCH_SAMPLES}[key] if isinstance(key, str) else key
+        got = _CONSTANTS[(key, device)] = torch.as_tensor(value, dtype=torch.float32,
+                                                          device=device)
+    return got
+
+
 def _uniform(unit: torch.Tensor, lo, hi) -> torch.Tensor:
-    """A unit draw scaled to [lo, hi) the way jax.random.uniform scales its bits."""
-    lo = torch.as_tensor(lo, dtype=torch.float32, device=unit.device)
-    hi = torch.as_tensor(hi, dtype=torch.float32, device=unit.device)
+    """A unit draw scaled to [lo, hi) the way jax.random.uniform scales its
+    bits; a bound given as a float is its float32 scalar."""
+    lo, hi = (x if isinstance(x, torch.Tensor) else _constant(float(x), unit.device)
+              for x in (lo, hi))
     return torch.maximum(lo, unit * (hi - lo) + lo)
 
 
@@ -120,8 +137,8 @@ def sample_step_params(cur: CurriculumState, draws: StoneDraws):
     r_u = _uniform(draws.r_u, R_MIN, R_MIN + (R_MAX - R_MIN) * s)
 
     dev = draws.cat.device
-    yaw_g = torch.as_tensor(YAW_SAMPLES, device=dev)[draws.cat // GRID]
-    pitch_g = torch.as_tensor(PITCH_SAMPLES, device=dev)[draws.cat % GRID]
+    yaw_g = _constant("yaw", dev)[draws.cat // GRID]
+    pitch_g = _constant("pitch", dev)[draws.cat % GRID]
     r_g = _uniform(draws.r_g, R_MIN, R_MAX)
 
     use = cur.use_prob[:, None]
@@ -191,8 +208,7 @@ def candidate_stones(terrain: torch.Tensor, index: torch.Tensor) -> torch.Tensor
     it: the geometry behind `create_temp_states`. (B, GRID * GRID, 6)."""
     B, n, dev = terrain.shape[0], terrain.shape[1], terrain.device
     prev = terrain[torch.arange(B, device=dev), torch.clamp(index - 1, 0, n - 1)]
-    yy, pp = torch.meshgrid(torch.as_tensor(YAW_SAMPLES, device=dev),
-                            torch.as_tensor(PITCH_SAMPLES, device=dev), indexing="ij")
+    yy, pp = torch.meshgrid(_constant("yaw", dev), _constant("pitch", dev), indexing="ij")
     yaw = yy.reshape(-1).expand(B, -1)
     flat = torch.zeros_like(yaw)
     return next_stone(prev[:, None], (R_MIN + R_MAX) * 0.5, yaw, pp.reshape(-1), flat, flat)

@@ -424,7 +424,10 @@ def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_groun
 
 def _batched(x, B: int, unbatched_dim: int, dtype, device):
     """x as a tensor; an operand with `unbatched_dim` dims (one env's, or a
-    scalar) is repeated over the batch, as engine.py's vmap rule does."""
+    scalar) is repeated over the batch, as engine.py's vmap rule does. A
+    Python number is filled in on the device (no copy from the host)."""
+    if isinstance(x, (bool, int, float)) and unbatched_dim == 0:
+        return torch.full((B,), x, dtype=dtype, device=device)
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(x, dtype=dtype, device=device)
     if x.dim() == unbatched_dim:

@@ -18,15 +18,21 @@ JSON line per setting:
 
 - `host_ms`: each span path's host time (and self time) per control step
   or per minibatch step, and the host syncs inside it per step;
-- `metrics`: policy_host_ms, env_step_host_ms, physics_entry_host_ms and
-  syncs_per_env_step per control step, ppo_step_host_ms,
-  syncs_per_ppo_step and graph_replays_per_ppo_step (the replays of the
-  captured minibatch step, agents/ppo.py: 1.0 on the card once captured, 0
-  on the CPU) per minibatch step, reset_share (env.reset over env.step).
-  On the card slice 2's update replays the captured step: `ppo.minibatch`
-  spans one replay and has no child; `ppo.forward`, `ppo.backward` and
+- `metrics`: policy_host_ms, env_step_host_ms, physics_entry_host_ms,
+  syncs_per_env_step and graph_replays_per_env_step (the replays of the
+  captured env step, envs/vector.py: 1.0 on the card once captured, 0 on
+  the CPU) per control step, ppo_step_host_ms, syncs_per_ppo_step and
+  graph_replays_per_ppo_step (the replays of the captured minibatch step,
+  agents/ppo.py: 1.0 on the card once captured, 0 on the CPU) per
+  minibatch step, reset_share (env.reset over env.step). On the card
+  slice 2's update replays the captured step: `ppo.minibatch` spans one
+  replay and has no child; `ppo.forward`, `ppo.backward` and
   `ppo.optimizer` exist only on the eager path (the CPU, several ranks)
-  and in the warm-up and capture of the first update;
+  and in the warm-up and capture of the first update. Likewise slice 2's
+  `env.step` spans one replay and its copies: `env.reset`,
+  `physics.entry` and `physics.launch` exist only on the eager path and
+  in the warm-up and capture, so on the card physics_entry_host_ms and
+  reset_share have no reading (None);
 - `sync_sites`: syncs by source line; `idle_ms`: slice 2's device idle
   time by the innermost span open over it (`<session>/<path>`, `-` outside
   every span) and `idle_attributed`, the share inside a span;
@@ -222,6 +228,16 @@ def analyse(spans: list, counters: dict, sessions: Sessions, per: dict) -> dict:
     )
 
 
+def _ms(host: dict, path: str):
+    """A span path's host ms a step, None where slice 2 has no such span
+    (one inside a replayed graph)."""
+    return host[path]["ms"] if path in host else None
+
+
+def _share(host: dict, part: str, whole: str):
+    return host[part]["ms"] / host[whole]["ms"] if part in host else None
+
+
 def train_probe(name: str, dev: torch.device, **sizes) -> dict:
     """The training setting `name`; `sizes` replace its TrainConfig
     fields (the tests' tiny runs on the CPU)."""
@@ -276,12 +292,13 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
     out["metrics"] = dict(
         policy_host_ms=host[f"{step}/policy"]["ms"],
         env_step_host_ms=host[f"{step}/env.step"]["ms"],
-        physics_entry_host_ms=host[f"{step}/env.step/physics.entry"]["ms"],
+        physics_entry_host_ms=_ms(host, f"{step}/env.step/physics.entry"),
         ppo_step_host_ms=host[mb]["ms"],
         syncs_per_env_step=host[step]["syncs"],
+        graph_replays_per_env_step=counters.get("env.graph.replays", 0) / T,
         syncs_per_ppo_step=host[mb]["syncs"],
         graph_replays_per_ppo_step=counters.get("ppo.graph.replays", 0) / minibatches,
-        reset_share=host[f"{step}/env.step/env.reset"]["ms"] / host[f"{step}/env.step"]["ms"])
+        reset_share=_share(host, f"{step}/env.step/env.reset", f"{step}/env.step"))
     return _finish(name, out, slice1, slice2, plain,
                    dict(control_steps=T, minibatch_steps=minibatches, envs=N))
 
@@ -322,9 +339,10 @@ def eval_probe(dev: torch.device, envs: int = EVAL_ENVS, steps: int = TRACE_STEP
     out["metrics"] = dict(
         policy_host_ms=host[f"{step}/policy"]["ms"],
         env_step_host_ms=host[f"{step}/env.step"]["ms"],
-        physics_entry_host_ms=host[f"{step}/env.step/physics.entry"]["ms"],
+        physics_entry_host_ms=_ms(host, f"{step}/env.step/physics.entry"),
         syncs_per_env_step=host[step]["syncs"],
-        reset_share=host[f"{step}/env.step/env.reset"]["ms"] / host[f"{step}/env.step"]["ms"])
+        graph_replays_per_env_step=counters.get("env.graph.replays", 0) / steps,
+        reset_share=_share(host, f"{step}/env.step/env.reset", f"{step}/env.step"))
     return _finish("eval", out, slice1, slice2, plain, dict(control_steps=steps, envs=envs))
 
 

@@ -36,6 +36,14 @@ The layer boundaries the port marks (PERF.md, section 3): `trainer.rollout`
 `value_grid.step` (> `policy`, `env.step`, `value_grid.candidates`,
 `value_grid.critic`, `value_grid.accumulate`), `curriculum.install`;
 `collective.<kind>` wherever a collective runs.
+
+The CUDA graphs (on a card, in one process for the update): a replayed
+minibatch step is one `ppo.minibatch` span with no child, a replayed env
+step one `env.step` span whose `env.reset`, `physics.entry` and
+`physics.launch` are recorded only in the eager warm-up and at the capture
+(`ppo.graph.capture`, `env.graph.capture`); the counters
+`ppo.graph.captures`, `ppo.graph.replays`, `env.graph.captures` and
+`env.graph.replays` count the captures and replays.
 """
 
 from __future__ import annotations
