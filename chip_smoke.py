@@ -10,8 +10,7 @@ order; any failure exits non-zero and no phase's failure is caught:
 1. card: name and power limit (nvidia-smi)
 2. build: the control-step kernels (csrc/control_step.cu, one nvcc run for
    the eight variants K1, K2, K3, K2+K3, K4, K2+K4, K3+K4, K2+K3+K4, each
-   as control_step_warp<PD, PLANK, ROT>, a warp per env, and as the first
-   design, the thread-per-env template, kept for timing) and ptxas's
+   as control_step_warp<PD, PLANK, ROT>, a warp per env) and ptxas's
    registers, stack frame and spills for each; control_step_warp's shared
    memory per block and resident envs per SM for Walker3D and Cassie on
    discs and on planks, unrotated and with rotated frames
@@ -35,12 +34,10 @@ order; any failure exits non-zero and no phase's failure is caught:
    first of the 4096 envs whose step engages a contact on a stone, a joint
    limit and (K2) plank-only support; then each variant's time per
    launch (K2's and K2+K3's also at their path batches, K1's and K2's at
-   B=1), timed in turns with its
-   thread-per-env design on the same inputs (warp, thread, thread, warp)
+   B=1)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
-   the plain version, and no launch of the thread-per-env design of a
-   warp-per-env variant, allowed):
+   the plain version, and no launch of another variant, allowed):
    - K1: Walker3D rollout, VecEnv(4096), 25 steps, exactly 25 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -149,9 +146,8 @@ order; any failure exits non-zero and no phase's failure is caught:
      (the gradient all-reduce) and per update is printed
 5. one JSON line `{"kernels": [...]}` (K1's `launches` are the bench's on
    the measurement path, each variant's other paths under `other_paths`;
-   each variant with its `design`,
-   `earlier_ms`, the thread-per-env design's time in this run, and
-   `occupancy`), the script's wall time, the card line, and last
+   each variant with its `design` and `occupancy`), the script's wall
+   time, the card line, and last
    `{"ok": true, "device": {...}}`
 """
 
@@ -398,14 +394,12 @@ def mangled_names() -> dict:
     """Each kernel's name and template arguments as they appear in its
     mangled name -> its variant: control_step_warp<PD, PLANK, ROT> (and
     control_step_warp<PD, PLANK> of sources before ROT, for
-    scripts/compare_sources.py's baselines) and control_step_kernel<PD,
-    PLANK, ROT> (the thread-per-env design, "K1@thread" ...)."""
+    scripts/compare_sources.py's baselines)."""
     from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
 
     mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
     names = {}
     for v, (pd, plank, rot) in VARIANTS.items():
-        names[mangle("control_step_kernel", (pd, plank, rot))] = f"{v}@thread"
         names[mangle("control_step_warp", (pd, plank, rot))] = v
         if not rot:
             names[mangle("control_step_warp", (pd, plank))] = f"{v} (before ROT)"
@@ -731,12 +725,8 @@ def time_variant(env, variant: str, args, kw) -> dict:
     if pd:
         launch_kw.update(target_t=kw["target"].t().contiguous(), power=kw["power"])
     cp = env.cfg.contact
-    launch = lambda **k: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw, **k)
-    # in turns with the thread-per-env design on the same inputs: warp,
-    # thread, thread, warp
-    turns = [cuda_ms(lambda: launch(thread_design=thread), TIMED_LAUNCHES)
-             for thread in (False, True, True, False)]
-    ms = (turns[0] + turns[3]) / 2
+    ms = cuda_ms(lambda: kernel.launch(model, *soa, cp, engine.SUBSTEPS, **launch_kw),
+                 TIMED_LAUNCHES)
     wrapper_ms = cuda_ms(lambda: step_kernel.control_step(model, *args, **kw), TIMED_LAUNCHES)
     plain_ms = cuda_ms(lambda: plain_version(model, args, kw), 3)
     n_stones, batch = args[3].shape[1], args[0].shape[0]
@@ -744,9 +734,8 @@ def time_variant(env, variant: str, args, kw) -> dict:
                                            rot) * batch
     nbytes = step_kernel.control_step_bytes(model, n_stones, pd) * batch
     ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    got = dict(variant=variant, batch=batch, ms=ms, earlier_ms=(turns[1] + turns[2]) / 2,
-               turns_ms=turns, wrapper_ms=wrapper_ms,
-               plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+    got = dict(variant=variant, batch=batch, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                flops=flops, bytes=nbytes)
     print(f"{variant} timing:", json.dumps(got), flush=True)
@@ -2254,8 +2243,6 @@ def main() -> int:
             limit_flips=sum(x["limit_flips"] for x in c),
             checked_batches=[x["batch"] for x in c],
             ms=t["ms"],
-            # the thread-per-env design's time in this run, same inputs
-            earlier_ms=t["earlier_ms"],
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"],
             bound_by=t["bound_by"],
@@ -2265,7 +2252,7 @@ def main() -> int:
             flops=t["flops"],
             bytes=t["bytes"],
             # at the batch sizes of its path (the 4096-env numbers above)
-            path_batches={b: {k: p[k] for k in ("ms", "earlier_ms", "bound_ms", "plain_ms")}
+            path_batches={b: {k: p[k] for k in ("ms", "bound_ms", "plain_ms")}
                           for b, p in path_timings[variant].items()},
             occupancy=occupancy[variant],
         ))

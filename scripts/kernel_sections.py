@@ -62,9 +62,9 @@ def stamp(k: int) -> str:
 def stamped_source(src: str):
     """The source with control_step_warp's sections stamped, and the
     sections' names in counter order."""
-    # from control_step_warp's template line to the thread-per-env launch's
+    # from control_step_warp's template line to the first host function's
     start = src.rindex("template <", 0, src.index("control_step_warp(const __grid_constant__"))
-    end = src.rindex("template <", 0, src.index("static void launch("))
+    end = src.rindex("template <", 0, src.index("static cudaError_t warp_prepare("))
     body = src[start:end]
     names = ["set-up (loads, stone normals and axes)"]
     body = body.replace("  if (e >= B) return;  // the whole warp: no other warp waits on it\n",

@@ -13,10 +13,7 @@ each of its specializations:
 
 Every variant runs `control_step_warp<PD, PLANK, ROT>` (a warp per env,
 its scratch in shared memory laid out by `warp_layout`, the tree walked
-with the model's `kernel_tables`). The first design, the thread-per-env
-template `control_step_kernel<PD, PLANK, ROT>`, stays built for timing the
-two designs against each other (`launch(..., thread_design=True)`, counted
-as "K1@thread" ... "K2+K3+K4@thread", `THREAD_DESIGN`); no path takes it.
+with the model's `kernel_tables`).
 
 It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
@@ -24,8 +21,8 @@ the library for the current source exists.
 
 `control_step` is the only entry: CPU tensors run the plain PyTorch
 version `engine._step_scan`; CUDA tensors launch the kernel or raise —
-there is no fallback. `CONTROL_STEP.launches[key]` counts launches of
-each variant (`COUNTED`).
+there is no fallback. `CONTROL_STEP.launches[variant]` counts launches
+of each variant (`VARIANTS`).
 """
 
 from __future__ import annotations
@@ -72,10 +69,6 @@ VARIANTS = {"K1": (False, False, False), "K2": (False, True, False),
             "K3": (True, False, False), "K2+K3": (True, True, False),
             "K4": (False, False, True), "K2+K4": (False, True, True),
             "K3+K4": (True, False, True), "K2+K3+K4": (True, True, True)}
-# the thread-per-env design of each variant, launched only to time the
-# two designs
-THREAD_DESIGN = {f"{v}@thread": v for v in VARIANTS}
-COUNTED = (*VARIANTS, *THREAD_DESIGN)
 
 
 def variant(pd: bool, plank: bool, rot: bool) -> str:
@@ -218,7 +211,7 @@ def _nvcc() -> str:
 class ControlStepKernel:
     """Builds, loads and launches the control-step kernels from `source`
     (by default the package's csrc/control_step.cu); `launches` counts the
-    launches of each variant (`COUNTED`)."""
+    launches of each variant (`VARIANTS`)."""
 
     def __init__(self, source: Path = SOURCE):
         self.source = Path(source)
@@ -267,12 +260,6 @@ class ControlStepKernel:
                  ctypes.c_int]
                 + [ctypes.c_void_p] * 15
             )
-            lib.control_step_launch_thread.restype = ctypes.c_int
-            lib.control_step_launch_thread.argtypes = (
-                [ctypes.POINTER(_ModelData), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint]
-                + [ctypes.c_void_p] * 13
-            )
             lib.control_step_warp_floats.restype = ctypes.c_int
             lib.control_step_warp_floats.argtypes = [ctypes.c_int] * 4
             lib.control_step_warp_envs_per_sm.restype = ctypes.c_int
@@ -292,7 +279,7 @@ class ControlStepKernel:
         return time.perf_counter() - t0
 
     def reset_counts(self) -> None:
-        self.launches = dict.fromkeys(COUNTED, 0)
+        self.launches = dict.fromkeys(VARIANTS, 0)
 
     def _warp_operands(self, key, model, n_stones: int, plank: bool, device):
         """control_step_warp's device operands, cached: the model data of
@@ -331,16 +318,14 @@ class ControlStepKernel:
 
     def launch(self, model, q_t, qd_t, tau_t, stones_t, stone_radius, use_ground,
                cparams: ContactParams, substeps: int, target_t=None, power=None,
-               support_hy=None, thread_design: bool = False):
+               support_hy=None):
         """One launch on CUDA tensors in the kernel's struct-of-arrays
         layout, env index fastest: q_t (nq, B), qd_t (ndof, B), tau_t
         (NJ, B), stones_t (6 S, B), stone_radius (B,), use_ground (B,) as
         float32 0/1; for stable PD also target_t (NJ, B) and power (B,);
         for planks `support_hy` (a float); a model with `joint_rot` runs a
-        K4 variant. `thread_design` launches the variant's thread-per-env
-        body in place of control_step_warp, for timing the two. Returns
-        new (nq, B), (ndof, B) and (NJ + 7, B) tensors. Callers check
-        inputs (`control_step` does)."""
+        K4 variant. Returns new (nq, B), (ndof, B) and (NJ + 7, B)
+        tensors. Callers check inputs (`control_step` does)."""
         with span("physics.launch"):
             self.build()
             model_key = (model, cparams, substeps)
@@ -365,20 +350,13 @@ class ControlStepKernel:
                 jrot, rot_rows = self._rotations[key]
             with torch.cuda.device(q_t.device):
                 stream = torch.cuda.current_stream(q_t.device).cuda_stream
-                if thread_design:
-                    name += "@thread"
-                    err = self._lib.control_step_launch_thread(
-                        ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
-                        *(ptr(t) for t in (jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
-                                           stone_radius, use_ground, *outs)), stream)
-                else:
-                    md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
-                                                                       q_t.device)
-                    ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
-                           stone_radius, use_ground)
-                    err = self._lib.control_step_launch(
-                        ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
-                        nlev, npairs, *(ptr(t) for t in ins + tuple(outs)), stream)
+                md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
+                                                                   q_t.device)
+                ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
+                       stone_radius, use_ground)
+                err = self._lib.control_step_launch(
+                    ctypes.byref(md), B, S, int(pd), int(plank), int(rot), hy_margin, rot_rows,
+                    nlev, npairs, *(ptr(t) for t in ins + tuple(outs)), stream)
             if err != 0:
                 raise RuntimeError(f"control_step kernel launch failed: CUDA error {err}")
             self.launches[name] += 1

@@ -160,14 +160,11 @@ ON_WARP = {(pd, plank, rot) for pd in (False, True) for plank in (False, True)
 LAUNCH = ("int control_step_launch(", "#undef WARP_ARGS")
 # each launch entry's body in csrc/control_step.cu (from, to), the variants
 # (pd, plank, rot) checked there, and what it instantiates for each: the
-# launch without ROT and with it (both control_step_warp), the
-# thread-per-env timing (every variant's control_step_kernel) and the
+# launch without ROT and with it (both control_step_warp) and the
 # occupancy query (every warp instantiation)
 DISPATCH = {
     "warp launch": (LAUNCH, lambda f: not f[2], lambda f: ("launch_warp", f)),
     "K4 launch": (LAUNCH, lambda f: f[2], lambda f: ("launch_warp", f)),
-    "thread-per-env timing": (("int control_step_launch_thread(", '}  // extern "C"'),
-                              lambda f: True, lambda f: ("launch", f)),
     "occupancy": (("int control_step_warp_envs_per_sm(", "int control_step_launch("),
                   lambda f: True, lambda f: ("warp_blocks_per_sm", f)),
 }
@@ -176,9 +173,8 @@ DISPATCH = {
 @pytest.mark.parametrize("entry", list(DISPATCH))
 def test_launch_entries_dispatch_each_variant(entry):
     """Each (pd, plank, rot) reaches its own instantiation: all eight
-    launch control_step_warp<PD, PLANK, ROT> (K2+K4 and K2+K3+K4 too), the
-    thread-per-env timing builds all eight control_step_kernel<PD, PLANK,
-    ROT>, and the occupancy query knows all eight warp instantiations."""
+    launch control_step_warp<PD, PLANK, ROT> (K2+K4 and K2+K3+K4 too), and
+    the occupancy query knows all eight warp instantiations."""
     src = SK.SOURCE.read_text()
     assert ("template <bool PD, bool PLANK, bool ROT>\n"
             "__global__ void __launch_bounds__(WARP_ENVS") in src
@@ -194,7 +190,6 @@ def test_launch_entries_dispatch_each_variant(entry):
     assert {k: c for k, c in cases.items() if checked(flags[k])} == {
         k: expect(f) for k, f in flags.items() if checked(f)}
     assert set(SK.VARIANTS.values()) == ON_WARP
-    assert set(SK.THREAD_DESIGN.values()) == set(SK.VARIANTS)
 
 
 @pytest.mark.parametrize("name", [*MODELS, "walker3d_rotated", "cassie_rotated"])

@@ -43,6 +43,9 @@ from steppingstone_tpu_torch.runtime import train as ttrain
 from steppingstone_tpu_torch.runtime.config import TrainConfig
 
 WORLD = 2
+# each spawn's limit: about 3x the file's longest test in a whole run, so a
+# hung rank fails its own test well inside the suite's time limit
+RANK_TIMEOUT_S = 300
 
 
 @pytest.fixture(autouse=True)
@@ -56,7 +59,7 @@ def _rel(a, b, rtol, atol=0.0, what=""):
 
 def test_shard_replicate_gather_and_reductions():
     n = 6
-    ranks = spawn(workers.trees, WORLD, (n,))
+    ranks = spawn(workers.trees, WORLD, (n,), timeout=RANK_TIMEOUT_S)
     full, by_time = workers.fleet_tree(n)
     x = by_time.numpy().astype(np.float64)
     single_mean, single_std = pmesh.global_mean_std(pmesh.SINGLE, by_time)
@@ -92,7 +95,7 @@ def test_shard_draws_are_its_rows_of_the_fleets():
     envs' probabilities) are its rows of the single-process fleet's, and
     a rollout with action noise follows the single-process rollout."""
     n, steps = 8, 3
-    ranks = spawn(workers.fleet_draws, WORLD, (n, steps))
+    ranks = spawn(workers.fleet_draws, WORLD, (n, steps), timeout=RANK_TIMEOUT_S)
     single = workers.fleet_draws(n, steps, pmesh.SINGLE)
     one = lambda tree: jax.tree.map(lambda x: x.numpy(), tree)
     ref = {k: one(single[k]) for k in ("reset", "step")}
@@ -114,7 +117,7 @@ def test_shard_draws_are_its_rows_of_the_fleets():
 def test_sharded_ppo_update_equals_one_process(value_only):
     """Mirror on, 2 critics, the KL guard firing on the first minibatch,
     which rank 1 holds no row of."""
-    ranks = spawn(workers.ppo_sharded, WORLD, (value_only,))
+    ranks = spawn(workers.ppo_sharded, WORLD, (value_only,), timeout=RANK_TIMEOUT_S)
     policy, opt, cfg, batch, perms = workers.ppo_case()
     opt, metrics = tppo.ppo_update(policy, opt, cfg, batch, 3e-4, value_only=value_only,
                                    perms=perms)
@@ -177,7 +180,8 @@ def test_sharded_cassie_iteration_matches_jax_mesh(tmp_path):
                 noise=noise, env_draws=env_draws,
                 perms=draws_mod.ppo_perms(k_upd, N * T, 2, N * T))
     torch.save(case, tmp_path / "case.pt")
-    ranks = spawn(workers.cassie_iteration, WORLD, (str(tmp_path / "case.pt"),))
+    ranks = spawn(workers.cassie_iteration, WORLD, (str(tmp_path / "case.pt"),),
+                  timeout=RANK_TIMEOUT_S)
 
     cat = lambda k, dim=0: np.concatenate([r[k] for r in ranks], axis=dim)
     np.testing.assert_array_equal(cat("ep_done", 1), aux_j["ep_done"])
@@ -228,7 +232,8 @@ def test_train_main_over_two_ranks_resumes_and_equals_one_process(tmp_path):
     header1, one = _csv(tmp_path / "one" / "progress.csv")
     logged = [r["iter"] for r in one]  # the updates with two or more episodes
     exp = tmp_path / "ranks"
-    outs = spawn(workers.train_main, WORLD, (TINY + ["num_frames=256", f"experiment_dir={exp}"],))
+    outs = spawn(workers.train_main, WORLD, (TINY + ["num_frames=256", f"experiment_dir={exp}"],),
+                 timeout=RANK_TIMEOUT_S)
     assert all("distributed: process" in o["stdout"] for o in outs)
     assert "Updates 2" in outs[0]["stdout"] and "Updates" not in outs[1]["stdout"]
     assert sorted(os.listdir(exp)) == ["checkpoints", "configs.json", "episodes.csv",
@@ -237,7 +242,8 @@ def test_train_main_over_two_ranks_resumes_and_equals_one_process(tmp_path):
     _, rows = _csv(exp / "progress.csv")
     assert [r["iter"] for r in rows] == [i for i in logged if int(i) <= 2]
     outs = spawn(workers.train_main, WORLD,
-                 (TINY + ["num_frames=384", "resume=True", f"experiment_dir={exp}"],))
+                 (TINY + ["num_frames=384", "resume=True", f"experiment_dir={exp}"],),
+                 timeout=RANK_TIMEOUT_S)
     assert all("resumed from update 2" in o["stdout"] for o in outs)
     assert not [f for f in os.listdir(exp) if ".bak" in f]
     header, rows = _csv(exp / "progress.csv")
@@ -263,7 +269,8 @@ def test_every_strategy_runs_sharded_as_in_one_process(tmp_path):
     progress.csv and sampling pickles equal one process's."""
     import pickle
 
-    [ranks, _] = spawn(workers.train_strategies, WORLD, (str(tmp_path / "ranks"),))
+    [ranks, _] = spawn(workers.train_strategies, WORLD, (str(tmp_path / "ranks"),),
+                       timeout=RANK_TIMEOUT_S)
     workers.train_strategies(str(tmp_path / "one"), single=True)
     for case in workers.STRATEGIES:
         assert ranks[case] == (4, 1), case
@@ -291,7 +298,7 @@ def test_every_strategy_runs_sharded_as_in_one_process(tmp_path):
 
 
 def test_validate_and_fleets_over_the_ranks():
-    out = spawn(workers.config_checks, WORLD)[0]
+    out = spawn(workers.config_checks, WORLD, timeout=RANK_TIMEOUT_S)[0]
     assert "must divide over 2 ranks" in out["indivisible fleet"]
     assert "contradicts the 2 rank(s)" in out["mesh_devices=1"]
     assert "contradicts the 2 rank(s)" in out["mesh_devices=3"]

@@ -204,7 +204,7 @@ def test_k1_wrapper_runs_the_plain_version_on_cpu():
     st, ref = engine._step_scan(m, engine.PhysicsState(args[0], args[1]), *args[2:])
     assert torch.equal(q, st.q) and torch.equal(qd, st.qd)
     assert torch.equal(info.foot_stone, ref.foot_stone)
-    assert step_kernel.CONTROL_STEP.launches == dict.fromkeys(step_kernel.COUNTED, 0)
+    assert step_kernel.CONTROL_STEP.launches == dict.fromkeys(step_kernel.VARIANTS, 0)
 
 
 def test_wrapper_broadcasts_unbatched_operands():
@@ -328,12 +328,12 @@ def test_warp_design_matches_plain_on_the_card(card, variant, batch):
     """Every variant runs control_step_warp<PD, PLANK, ROT> (a warp per
     env): against the plain version at the main path's 4096 envs, at 64
     (one warp on an SM) and at 1 (enjoy's single env: one block, one live
-    warp behind the tail guard), counted under the variant and never as the
-    thread-per-env design."""
-    thread = f"{variant}@thread"
-    before = step_kernel.CONTROL_STEP.launches[thread]
+    warp behind the tail guard), counted under the variant and under no
+    other."""
+    before = dict(step_kernel.CONTROL_STEP.launches)
     _check_variant_on_the_card(variant, batch)
-    assert step_kernel.CONTROL_STEP.launches[thread] == before
+    after = step_kernel.CONTROL_STEP.launches
+    assert {k: n - before[k] for k, n in after.items() if n != before[k]} == {variant: 1}
 
 
 def _to(x, device):

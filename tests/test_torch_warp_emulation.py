@@ -1,9 +1,13 @@
 """control_step_warp<PD, PLANK, ROT> (all eight variants, K1..K4 and their
 combinations) run on the CPU, where there is no card: the kernel's part of
 csrc/control_step.cu is compiled with the host C++ compiler against
-tests/warp_emulation.h, which runs each lane as a thread and meets a
-warp's lanes at a barrier for __syncwarp and the shuffles, block after
-block. Its outputs are held to the plain version (engine._step_scan) with
+tests/warp_emulation.h, which runs each lane as a fiber on one thread: a
+warp's lanes in turn, each up to the warp's next meeting point (__syncwarp
+and the shuffles), warp after warp and block after block. Every step runs
+twice, the lanes in ascending and then in descending order, and the two
+must agree bit for bit, so a missing meeting point shows as a difference
+or a NaN (test_emulation_sees_a_missing_syncwarp plants one). Its outputs
+are held to the plain version (engine._step_scan) with
 the Pallas kernel's bars (q 2e-4, qd 2e-3/2e-2, foot force 1e-2/1.0),
 contact_force_sum (1e-3/1.0) and the diagnostics exactly: on Walker3D and
 Cassie torques over discs and planks, on Cassie stable PD over discs and
@@ -53,9 +57,6 @@ HERE = Path(__file__).resolve().parent
 
 HARNESS = r"""
 #include "warp_emulation.h"
-#include <memory>
-#include <thread>
-#include <vector>
 
 float smem[1 << 18];  // the kernel's extern __shared__ array
 #include "kernel_part.inc"
@@ -76,13 +77,16 @@ void lane_body(const ModelData* m, const WarpLayout& lay, int B, int S, float hy
                                     info_out);
 }
 
-// the instantiations that control_step_launch dispatches: all eight
+// the instantiations that control_step_launch dispatches: all eight, the
+// lanes of each warp in ascending order between meeting points, or in
+// descending order; returns the layout's floats, -1 if the blocks' shared
+// memory does not fit, -2 if a warp's lanes diverge at a meeting point
 extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank, int rot,
                             float hy_margin, unsigned rot_rows, const float* jrot, int nlev,
                             int npairs, const int* tab, const float* q, const float* qd,
                             const float* tau, const float* target, const float* power,
                             const float* st, const float* sr, const float* ug, float* q_out,
-                            float* qd_out, float* info_out) {
+                            float* qd_out, float* info_out, int descending) {
   const LaneBody bodies[8] = {lane_body<false, false, false>, lane_body<false, true, false>,
                               lane_body<true, false, false>, lane_body<true, true, false>,
                               lane_body<false, false, true>, lane_body<false, true, true>,
@@ -90,51 +94,52 @@ extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank,
   const LaneBody run = bodies[4 * (rot != 0) + 2 * (pd != 0) + (plank != 0)];
   const WarpLayout lay = warp_layout(m->nb, m->nc, S, plank != 0);
   if ((long)WARP_ENVS * lay.size > (long)(sizeof(smem) / sizeof(float))) return -1;
+  const std::function<void()> body = [&] {
+    run(m, lay, B, S, hy_margin, rot_rows, jrot, nlev, npairs, tab, q, qd, tau, target, power,
+        st, sr, ug, q_out, qd_out, info_out);
+  };
   for (int b = 0; b < (B + WARP_ENVS - 1) / WARP_ENVS; ++b) {
     std::memset(smem, 0xff, sizeof(float) * WARP_ENVS * lay.size);  // NaN until written
-    std::vector<std::unique_ptr<Warp>> warps;
-    for (int w = 0; w < WARP_ENVS; ++w) warps.emplace_back(new Warp());
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < WARP_ENVS * 32; ++t)
-      lanes.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = WARP_ENVS * 32;
-        this_warp = warps[t >> 5].get();
-        run(m, lay, B, S, hy_margin, rot_rows, jrot, nlev, npairs, tab, q, qd, tau, target,
-            power, st, sr, ug, q_out, qd_out, info_out);
-      });
-    for (auto& lane : lanes) lane.join();
+    for (int w = 0; w < WARP_ENVS; ++w)
+      if (!warp_emulation::run_warp(body, b, w, WARP_ENVS * 32, descending != 0))
+        return -2;
   }
   return lay.size;
 }
 """
+# the host-launch code starts here (<<< >>>); the kernels and helpers before it
+CUT = "template <bool PD, bool PLANK, bool ROT>\nstatic cudaError_t warp_prepare("
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def _build(tmp, src):
+    """control_step_warp's part of `src` compiled against warp_emulation.h
+    into `tmp` -> its `emulate_warp`."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a host C++ compiler is needed"
-    tmp = tmp_path_factory.mktemp("warp_emulation")
-    src = step_kernel.SOURCE.read_text()
-    # the kernels and host helpers, without the launch code (<<< >>>)
-    cut = src.index("template <bool PD, bool PLANK, bool ROT>\nstatic void launch(")
-    (tmp / "kernel_part.inc").write_text(src[:cut].replace("#include <cuda_runtime.h>", ""))
+    part = src[:src.index(CUT)].replace("#include <cuda_runtime.h>", "")
+    (tmp / "kernel_part.inc").write_text(part)
     (tmp / "harness.cpp").write_text(HARNESS)
     lib = tmp / "libwarp_emulation.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", str(HERE),
-                    "-o", str(lib), str(tmp / "harness.cpp")], check=True, capture_output=True)
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(HERE), "-o", str(lib),
+                    str(tmp / "harness.cpp")], check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).emulate_warp
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 12)
+                   + [ctypes.c_void_p] * 12 + [ctypes.c_int])
     return fn
 
 
-def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("warp_emulation"), step_kernel.SOURCE.read_text())
+
+
+def _run(emulated, model, args, target=None, power=None, support_hy=None, descending=False):
     """One control step of the emulated control_step_warp on (B, k) inputs
-    as control_step takes them -> (q, qd, engine.StepInfo)."""
+    as control_step takes them, the lanes of each warp in ascending or
+    descending order between meeting points -> its (nq, B), (ndof, B) and
+    (NJ + 7, B) outputs."""
     cp, (batch, n_stones) = ContactParams(), args[3].shape[:2]
     pd, plank, rot = target is not None, support_hy is not None, model.joint_rot is not None
     md = step_kernel._model_data(model, cp, engine.SUBSTEPS)
@@ -147,9 +152,26 @@ def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
     hy_margin = float(support_hy) + cp.margin if plank else 0.0
     ptr = lambda t: None if t is None else t.data_ptr()
     size = emulated(ctypes.byref(md), batch, n_stones, int(pd), int(plank), int(rot), hy_margin,
-                    rot_rows, ptr(jrot), nlev, npairs, *(ptr(t) for t in (*ins, *outs)))
+                    rot_rows, ptr(jrot), nlev, npairs, *(ptr(t) for t in (*ins, *outs)),
+                    int(descending))
     assert size == step_kernel.warp_floats(model.nbodies, model.ncontacts, n_stones, plank)
-    q, qd, info = outs[0].t(), outs[1].t(), outs[2]
+    return outs
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+def _emulate(emulated, model, args, target=None, power=None, support_hy=None):
+    """One control step of the emulated control_step_warp, run twice: the
+    lanes in ascending, then in descending order between meeting points.
+    The two must agree bit for bit (a read of another lane's shared-memory
+    write with no meeting point in between reads NaN or a stale value in
+    one of the orders) -> (q, qd, engine.StepInfo)."""
+    up, down = (_run(emulated, model, args, target, power, support_hy, descending)
+                for descending in (False, True))
+    assert _bit_equal(up, down), "the two lane orders disagree: a missing meeting point"
+    q, qd, info = up[0].t(), up[1].t(), up[2]
     nj = model.njoints
     return q, qd, engine.StepInfo(
         foot_contact=info[0:2].t() > 0.0, foot_stone=info[2:4].t().long(),
@@ -290,6 +312,25 @@ def test_emulated_warp_kernel_matches_plain(emulated, case):
         free, _ = engine._step_scan(model, engine.PhysicsState(args[0], args[1]), *args[2:],
                                     cp, pd=(target, 0.0 * power), support_hy=hy)
         assert ((st.qd[:, 6:] - free.qd[:, 6:]).abs() > 1e-2).all()
+
+
+def test_emulation_sees_a_missing_syncwarp(emulated, tmp_path):
+    """The harness finds a missing meeting point: with the __syncwarp
+    before the contact tests taken out of the source, the stone-test lanes
+    read the sphere centers that other lanes write with no meeting point in
+    between, and on a Walker3D plank case the two lane orders then disagree
+    or an output is NaN; the kernel as it is agrees with itself there."""
+    src = step_kernel.SOURCE.read_text()
+    contacts = "\n\n    // ---- contacts: the deepest valid support"
+    assert src.count("    __syncwarp();" + contacts) == 1
+    faulty = _build(tmp_path, src.replace("    __syncwarp();" + contacts, contacts))
+    make, plank, n_stones, batch, _ = CASES["walker3d_plank"]
+    model = make()
+    args, _, _ = _inputs(model, batch, n_stones, plank, seed=3)
+    intact = [_run(emulated, model, args, support_hy=1.5, descending=d) for d in (False, True)]
+    assert _bit_equal(*intact)
+    up, down = (_run(faulty, model, args, support_hy=1.5, descending=d) for d in (False, True))
+    assert not _bit_equal(up, down) or any(torch.isnan(t).any() for t in (*up, *down))
 
 
 @pytest.mark.parametrize("support_hy", [None, 0.6])

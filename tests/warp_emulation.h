@@ -1,14 +1,18 @@
 // The CUDA features that control_step_warp (csrc/control_step.cu) uses,
 // emulated on the host for tests/test_torch_warp_emulation.py: a lane is a
-// std::thread, a warp's __syncwarp and shuffles meet at a barrier of its 32
-// lanes, shared memory is one host array (blocks run one after another).
-// Only what the kernel's part of the source needs is here.
+// fiber (ucontext) on the calling thread, and a warp's 32 lanes run in turn,
+// each until it reaches the warp's next meeting point (__syncwarp, or one of
+// the three inside a shuffle), in ascending or descending lane order; shared
+// memory is one host array (warps and blocks run one after another). Only
+// what the kernel's part of the source needs is here.
 #pragma once
 #include <math.h>
+#include <ucontext.h>
 
 #include <algorithm>
-#include <barrier>
 #include <cstring>
+#include <functional>
+#include <vector>
 
 #define __global__
 #define __device__
@@ -21,7 +25,8 @@
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+// set before each lane resumes
+inline dim3 threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
@@ -34,24 +39,29 @@ inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 using std::max;
 using std::min;
 
-// one warp's meeting point
+// one warp: its lanes' fibers and the shuffles' slots
 struct Warp {
-  std::barrier<> bar{32};
   float f[32];
   int i[32];
+  ucontext_t scheduler;
+  ucontext_t lane[32];
+  bool done[32];
 };
-inline thread_local Warp* this_warp = nullptr;
+inline Warp* this_warp = nullptr;
 
-inline void __syncwarp(unsigned = 0xffffffffu) { this_warp->bar.arrive_and_wait(); }
+// the running lane's meeting point: back to the warp's scheduler
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  swapcontext(&this_warp->lane[threadIdx.x & 31], &this_warp->scheduler);
+}
 
 template <class T>
 inline T shfl(T* slot, T v, int src) {
   const int lane = threadIdx.x & 31;
-  this_warp->bar.arrive_and_wait();
+  __syncwarp();
   slot[lane] = v;
-  this_warp->bar.arrive_and_wait();
+  __syncwarp();
   const T r = slot[src & 31];
-  this_warp->bar.arrive_and_wait();
+  __syncwarp();
   return r;
 }
 inline float __shfl_sync(unsigned, float v, int src) { return shfl(this_warp->f, v, src); }
@@ -62,3 +72,49 @@ inline float __shfl_xor_sync(unsigned m, float v, int off) {
 inline int __shfl_xor_sync(unsigned m, int v, int off) {
   return __shfl_sync(m, v, (int)(threadIdx.x & 31) ^ off);
 }
+
+namespace warp_emulation {
+
+inline const std::function<void()>* lane_body = nullptr;
+
+inline void lane_entry() {
+  (*lane_body)();
+  this_warp->done[threadIdx.x & 31] = true;
+}  // returns to uc_link, the warp's scheduler
+
+// Runs `body` as the 32 lanes of warp `warp` of block `block`, in rounds:
+// each lane in turn (ascending lane order, or descending) from its last
+// meeting point to its next one or to its end. Returns false if the lanes
+// diverge: some end while others wait at a meeting point (on the card a
+// __syncwarp of the full mask would then hang).
+inline bool run_warp(const std::function<void()>& body, unsigned block, unsigned warp,
+                     unsigned block_dim, bool descending) {
+  static constexpr size_t kStack = 256 << 10;  // a lane's stack
+  static std::vector<char> stacks(32 * kStack);
+  Warp w;
+  lane_body = &body;
+  this_warp = &w;
+  for (int l = 0; l < 32; ++l) {
+    w.done[l] = false;
+    getcontext(&w.lane[l]);
+    w.lane[l].uc_stack.ss_sp = stacks.data() + l * kStack;
+    w.lane[l].uc_stack.ss_size = kStack;
+    w.lane[l].uc_link = &w.scheduler;
+    makecontext(&w.lane[l], lane_entry, 0);
+  }
+  blockIdx.x = block;
+  blockDim.x = block_dim;
+  for (;;) {
+    int ended = 0;
+    for (int k = 0; k < 32; ++k) {
+      const int l = descending ? 31 - k : k;
+      threadIdx.x = 32 * warp + l;
+      swapcontext(&w.scheduler, &w.lane[l]);
+      ended += w.done[l];
+    }
+    if (ended == 32) return true;
+    if (ended != 0) return false;
+  }
+}
+
+}  // namespace warp_emulation
