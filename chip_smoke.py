@@ -34,10 +34,20 @@ order; any failure exits non-zero and no phase's failure is caught:
    first of the 4096 envs whose step engages a contact on a stone, a joint
    limit and (K2) plank-only support; then each variant's time per
    launch (K2's and K2+K3's also at their path batches, K1's and K2's at
-   B=1)
+   B=1); the foot_positions kernel (the feet's world positions that every
+   env reset and step reads) against the plain forward kinematics on the
+   same states, within 1e-5 + 1e-6 |x|, at its paths' batches: Walker3D at
+   4096 (K1's states) and at 1024, 256 and 16 (K2's: the round-5 fleet,
+   the behavior evaluation's and the value grid's), Cassie at 1024 (K2+K3's)
+   and Walker3D with fixed joint rotations at a ragged 1000 (K4's); then
+   its time per launch replayed from a CUDA graph (as the env step's graph
+   runs it), per eager call, and the plain kinematics' per eager call
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
-   the plain version, and no launch of another variant, allowed):
+   the plain version, and no launch of another variant, allowed; the
+   foot_positions kernel exactly two launches an env step, the auto-reset's
+   and the step's own, and one a reset outside a step, none on the paths
+   of engine.step calls):
    - K1: Walker3D rollout, VecEnv(4096), 25 steps, exactly 25 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -146,7 +156,8 @@ order; any failure exits non-zero and no phase's failure is caught:
      (the gradient all-reduce) and per update is printed
 5. one JSON line `{"kernels": [...]}` (K1's `launches` are the bench's on
    the measurement path, each variant's other paths under `other_paths`;
-   each variant with its `design` and `occupancy`), the script's wall
+   each variant with its `design` and `occupancy`; last foot_positions,
+   its launches on the bench and on every other path checked), the script's wall
    time, the card line, and last
    `{"ok": true, "device": {...}}`
 """
@@ -283,6 +294,13 @@ CARD_CPU_EPISODE_STEPS = 30
 # K1 and K2 are also held to their plain version, and timed, at enjoy's
 # single env
 ONE_ENV = ("K1", "K2")
+# foot_positions is held to the plain kinematics, and timed, on the states
+# of these variants' checks at these batches: the rollout paths' fleet
+# (K1, Walker3D), the round-5 fleets (K2 Walker3D, K2+K3 Cassie), the
+# behavior evaluation's and the value grid's fleets, and a ragged batch of
+# a model with fixed joint rotations (K4)
+FOOT_BATCHES = {"K1": (NUM_ENVS,), "K2": (R5_ENVS, BEHAVIOR_ENVS, GRID_ENVS),
+                "K2+K3": (R5_ENVS,), "K4": (CHECK_BATCHES[1],)}
 # the behavior evaluation of the round-5 reports on the round-5 Walker3D
 # loop's checkpoints (runs/r5_w3d, latest), at its 256 envs, cut in depth
 # from 1000 steps to BEHAVIOR_STEPS (the untrained policy falls after ~21
@@ -394,11 +412,11 @@ def mangled_names() -> dict:
     """Each kernel's name and template arguments as they appear in its
     mangled name -> its variant: control_step_warp<PD, PLANK, ROT> (and
     control_step_warp<PD, PLANK> of sources before ROT, for
-    scripts/compare_sources.py's baselines)."""
+    scripts/compare_sources.py's baselines), and foot_positions."""
     from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
 
     mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
-    names = {}
+    names = {"foot_positions": "foot_positions"}
     for v, (pd, plank, rot) in VARIANTS.items():
         names[mangle("control_step_warp", (pd, plank, rot))] = v
         if not rot:
@@ -416,31 +434,77 @@ def print_ptxas(build_log: str) -> None:
             print(f"ptxas {current}:", line.strip(), flush=True)
 
 
+@dataclasses.dataclass
+class Counted:
+    """What counting_plain counts in its block: calls of the plain control
+    step, env resets on the card made outside an env step, and the
+    foot_positions kernel's launches."""
+    plain_calls: int = 0
+    resets: int = 0
+    feet: int = 0
+
+
+# foot_positions' launches on each path checked (check_launches), by path
+FOOT_LAUNCHES: dict = {}
+
+
 @contextlib.contextmanager
 def counting_plain():
     """Counts calls of the plain control step (engine._step_scan) in the
-    block; a path on the card must make none."""
-    from steppingstone_tpu_torch.physics import engine
+    block, which a path on the card must not make; the env resets on the
+    card made outside an env step (StepperEnv.reset, its auto-reset inside
+    StepperEnv.step left out); and the foot_positions kernel's launches,
+    set to 0 at the block's start."""
+    from steppingstone_tpu_torch.envs.stepper import StepperEnv
+    from steppingstone_tpu_torch.physics import engine, step_kernel
 
-    calls = [0]
-    plain = engine._step_scan
+    counted, depth = Counted(), [0]
+    plain, reset, step = engine._step_scan, StepperEnv.reset, StepperEnv.step
 
-    def counted(*args, **kwargs):
-        calls[0] += 1
+    def counted_plain(*args, **kwargs):
+        counted.plain_calls += 1
         return plain(*args, **kwargs)
 
-    engine._step_scan = counted
+    def counted_reset(env, *args, **kwargs):
+        counted.resets += depth[0] == 0 and env.device.type == "cuda"
+        return reset(env, *args, **kwargs)
+
+    def counted_step(env, *args, **kwargs):
+        depth[0] += 1
+        try:
+            return step(env, *args, **kwargs)
+        finally:
+            depth[0] -= 1
+
+    engine._step_scan = counted_plain
+    StepperEnv.reset, StepperEnv.step = counted_reset, counted_step
+    step_kernel.FOOT_POSITIONS.launches = 0
     try:
-        yield calls
+        yield counted
     finally:
-        engine._step_scan = plain
+        engine._step_scan, StepperEnv.reset, StepperEnv.step = plain, reset, step
+        counted.feet = step_kernel.FOOT_POSITIONS.launches
 
 
-def check_launches(what: str, launches: dict, variant: str, expected: int, plain_calls: int):
+def check_launches(what: str, launches: dict, variant: str, expected: int,
+                   counted: Counted | None, env_steps: int | None = None):
+    """Exactly `expected` launches of `variant`, none of another variant
+    and, from `counted` (None where the path ran in other processes: only
+    their launches are checked), no plain call and two foot_positions
+    launches an env step
+    (its auto-reset's and its own; `env_steps` by default `expected`, 0 on
+    a path of engine.step calls) and one a reset outside a step."""
     others = {k: v for k, v in launches.items() if k != variant and v}
+    plain_calls = 0 if counted is None else counted.plain_calls
     if launches[variant] != expected or others or plain_calls:
         raise AssertionError(f"{what}: launches {launches}, plain calls {plain_calls}; "
                              f"expected {expected} {variant} launches and nothing else")
+    if counted is not None:
+        steps = expected if env_steps is None else env_steps
+        if counted.feet != 2 * steps + counted.resets:
+            raise AssertionError(f"{what}: {counted.feet} foot_positions launches, expected "
+                                 f"2 x {steps} env steps + {counted.resets} resets")
+        FOOT_LAUNCHES[what] = counted.feet
 
 
 def check_finite(what: str, tensors: dict) -> None:
@@ -742,6 +806,64 @@ def time_variant(env, variant: str, args, kw) -> dict:
     return got
 
 
+def foot_positions_cost(model, feet) -> tuple:
+    """(fp32 operations, bytes) of foot_positions for one env, counted
+    from its inputs: a link above the foot rotates the anchor (30: two
+    cross products and the sum), adds it (3), halves the angle and takes
+    its sine and cosine (3), scales the axis (3) and multiplies the
+    quaternions (28; 28 more with fixed joint rotations); the foot's own
+    link rotates and adds (33). Bytes: the root pose and the angles on the
+    feet's chains read, the positions written (the model's tables and the
+    chains are shared by every env)."""
+    from steppingstone_tpu_torch.physics import step_kernel
+
+    chains = step_kernel.foot_chains(model, feet)
+    link = 67 + (28 if model.joint_rot is not None else 0)
+    flops = sum(33 + (int(n) - 1) * link for n in chains[:, 0])
+    angles = {int(b) for row in chains for b in row[1:row[0]]}
+    return flops, 4 * (7 + len(angles)) + 4 * 3 * len(feet)
+
+
+def check_foot_positions(env, variant: str, q) -> dict:
+    """foot_positions on the card at q (B, nq) against the plain forward
+    kinematics on the card at the same q, within 1e-5 + 1e-6 |x|, in one
+    launch; then its time (ms: a launch replayed from a CUDA graph of
+    TIMED_LAUNCHES launches; wrapper_ms: an eager call) beside the plain
+    kinematics' (plain_ms) and the bound of its operations and bytes."""
+    import torch
+
+    from steppingstone_tpu_torch.envs.stepper import _foot_bodies
+    from steppingstone_tpu_torch.physics import kinematics, step_kernel
+
+    model = env.cfg.model
+    feet, batch = _foot_bodies(model), q.shape[0]
+    plain = lambda: kinematics.forward_kinematics(model, q).pos[:, list(feet)]
+    before = step_kernel.FOOT_POSITIONS.launches
+    got = step_kernel.foot_positions(model, q, feet)
+    if step_kernel.FOOT_POSITIONS.launches != before + 1:
+        raise AssertionError(f"foot_positions: {step_kernel.FOOT_POSITIONS.launches - before} "
+                             "launches for one call")
+    ref = plain()
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-5,
+                               msg=lambda m: f"foot_positions, {model.name} at {batch}: {m}")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMED_LAUNCHES):
+            step_kernel.foot_positions(model, q, feet)
+    flops, nbytes = (batch * x for x in foot_positions_cost(model, feet))
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    out = dict(variant=variant, robot=model.name, batch=batch,
+               max_abs_err=float((got - ref).abs().max()),
+               ms=cuda_ms(graph.replay, 5) / TIMED_LAUNCHES,
+               wrapper_ms=cuda_ms(lambda: step_kernel.foot_positions(model, q, feet),
+                                  TIMED_LAUNCHES),
+               plain_ms=cuda_ms(plain, 3), bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
+               bytes=nbytes)
+    print("foot_positions:", json.dumps(out), flush=True)
+    return out
+
+
 def rollout_path(env, variant: str, steps: int, detail: bool) -> dict:
     """A rollout as a user drives it (make_env, VecEnv, ActorCritic,
     collect_rollout) at NUM_ENVS, with the variant's launches counted;
@@ -767,7 +889,7 @@ def rollout_path(env, variant: str, steps: int, detail: bool) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches(f"{env.cfg.name} rollout", launches, variant, steps, plain[0])
+    check_launches(f"{env.cfg.name} rollout", launches, variant, steps, plain)
     if traj.obs.shape != (steps, NUM_ENVS, env.observation_dim):
         raise AssertionError(f"trajectory obs shape {tuple(traj.obs.shape)}")
     check_finite(f"{env.cfg.name} rollout", {
@@ -877,7 +999,7 @@ def cassie_training_path() -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches("Cassie training", launches, "K2+K3", TRAIN_STEPS, plain[0])
+    check_launches("Cassie training", launches, "K2+K3", TRAIN_STEPS, plain)
     check_finite("Cassie training", {
         **{f"param {n}": p.detach() for n, p in policy.named_parameters()},
         "adam mu": opt_state.mu, "adam nu": opt_state.nu, "last_obs": obs,
@@ -937,7 +1059,7 @@ def measurement_path() -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(kernel.launches)
-    check_launches("entry()", launches, "K1", ENTRY_CALLS, plain[0])
+    check_launches("entry()", launches, "K1", ENTRY_CALLS, plain)
     shapes = {"obs": (ENTRY_ENVS, 60), "reward": (ENTRY_ENVS,), "value": (ENTRY_ENVS, 1),
               "log_p": (ENTRY_ENVS, 1)}
     outs = dict(obs=obs, reward=reward, value=value, log_p=log_p)
@@ -975,7 +1097,7 @@ def measurement_path() -> dict:
                            rollout_repeats=BENCH_REPEATS, train_repeats=BENCH_REPEATS)
         seconds = time.perf_counter() - t0
     launches = dict(kernel.launches)
-    check_launches("bench", launches, "K1", control_steps, plain[0])
+    check_launches("bench", launches, "K1", control_steps, plain)
     rates = [result[k] for k in ("value", "rollout_only_steps_per_s", "seconds_per_iteration")]
     halves = result["phase_breakdown_s"]
     if (result["control_steps"] != control_steps
@@ -1043,7 +1165,7 @@ def walker_plank_path() -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches("Walker3D LargePlank training", launches, "K2", WALKER_PLANK_STEPS, plain[0])
+    check_launches("Walker3D LargePlank training", launches, "K2", WALKER_PLANK_STEPS, plain)
     check_finite("Walker3D LargePlank training", {
         **{f"param {n}": p.detach() for n, p in policy.named_parameters()},
         "adam mu": opt_state.mu, "last_obs": obs, "q": state.phys.q,
@@ -1200,7 +1322,7 @@ def urdf_path() -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         launches = dict(step_kernel.CONTROL_STEP.launches)
-        check_launches(f"URDF {variant}", launches, variant, URDF_STEPS, plain[0])
+        check_launches(f"URDF {variant}", launches, variant, URDF_STEPS, plain, env_steps=0)
         check_finite(f"URDF {variant}", {"q": state.q, "qd": state.qd})
         forces = torch.stack(forces)
         landing = int(forces.sum(dim=1).argmax())
@@ -1246,7 +1368,8 @@ def rotated_loop(env, variant: str, steps: int) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches(f"rotated {env.cfg.name} loop", launches, variant, steps, plain[0])
+    check_launches(f"rotated {env.cfg.name} loop", launches, variant, steps, plain,
+                   env_steps=0)
     check_finite(f"rotated {env.cfg.name} loop", {"q": state.q, "qd": state.qd})
     out = dict(env=env.cfg.name, support=env.cfg.support, launches=launches[variant],
                ms_per_step=1e3 * seconds / steps,
@@ -1288,7 +1411,7 @@ def training_loop_path(runs: str) -> dict:
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
     steps = r5_control_steps(trainer, cfg)
-    check_launches("training loop", launches, "K2", steps, plain[0])
+    check_launches("training loop", launches, "K2", steps, plain)
     out = dict(launches=launches["K2"], control_steps=steps, seconds=seconds,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                update_times=trainer.update_times)
@@ -1387,7 +1510,7 @@ def mike_path() -> dict:
         steps = cfg.num_updates * cfg.num_steps + env.max_episode_steps
         if steps != MIKE_LAUNCHES:
             raise AssertionError(f"the Mike run takes {steps} control steps")
-        check_launches("Mike training loop", launches, "K2", steps, plain[0])
+        check_launches("Mike training loop", launches, "K2", steps, plain)
         header, rows = read_progress(os.path.join(exp, "progress.csv"))
     if header != PROGRESS_HEADER:
         raise AssertionError(f"Mike progress.csv header {header}")
@@ -1461,7 +1584,7 @@ def threshold_path() -> dict:
                 seconds = time.perf_counter() - t0
             launches = dict(step_kernel.CONTROL_STEP.launches)
             check_launches(f"threshold loop ({phase})", launches, "K2", THR_LAUNCHES[phase],
-                           plain[0])
+                           plain)
             snap = ckpt.restore("latest")
             c, cur = snap["curriculum"], snap["env_state"]["cur"]
             out[phase] = dict(launches=launches["K2"], start_update=trainer.start_update,
@@ -1546,7 +1669,7 @@ def threshold_path() -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches("AdaptiveSampling.pre_update", launches, "K2", GRID_STEPS, plain[0])
+    check_launches("AdaptiveSampling.pre_update", launches, "K2", GRID_STEPS, plain)
     expected = host_softmax(-float(cfg.sampling_scale) * adaptive.last_grid)
     if not (np.abs(adaptive.last_probs - expected).max() < 1e-6
             and torch.allclose(state.cur.sample_prob.cpu(),
@@ -1599,7 +1722,7 @@ def specialist_path(runs: str, w3d_exp: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(step_kernel.CONTROL_STEP.launches)
-    check_launches("specialist loop", launches, "K2", SPECIALIST_LAUNCHES, plain[0])
+    check_launches("specialist loop", launches, "K2", SPECIALIST_LAUNCHES, plain)
     header, rows = read_progress(os.path.join(exp, "progress.csv"))
     if header != PROGRESS_HEADER or [r["iter"] for r in rows] != ["1"]:
         raise AssertionError(f"specialist progress.csv {header}, rows {[r['iter'] for r in rows]}")
@@ -1688,7 +1811,7 @@ def enjoy_paths(runs: str, spec_exp: str) -> dict:
         env = make_env("Walker3DStepperEnv-v0", **({"plank_class": "LargePlank"}
                                                    if variant == "K2" else {}))
         got = check_dump(dump, env.cfg)
-        check_launches(f"enjoy ({name})", launches, variant, got["steps"], plain[0])
+        check_launches(f"enjoy ({name})", launches, variant, got["steps"], plain)
         out[name] = dict(got, launches=launches[variant], seconds=seconds,
                          ms_per_step=1e3 * seconds / got["steps"])
     state, n = enjoy.load_params(ref_pt, env, 1)
@@ -1838,7 +1961,7 @@ def behavior_paths(w3d_exp: str) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         launches = dict(step_kernel.CONTROL_STEP.launches)
-        check_launches(f"behavior evaluation ({name})", launches, variant, expected, plain[0])
+        check_launches(f"behavior evaluation ({name})", launches, variant, expected, plain)
         labels = [k for k in report if k.startswith(("level_", "band_"))]
         check_behavior(name, report, labels)
         out[name] = dict(launches=launches[variant], seconds=seconds,
@@ -1972,7 +2095,7 @@ def sharded_dryrun_path() -> dict:
     out = dryrun.dryrun_multichip(SHARDED_RANKS, backend="gloo", n_envs=DRYRUN_ENVS,
                                   local_rank=0)
     for r in out["ranks"]:
-        check_launches(f"dry run, rank {r['rank']}", r["launches"], "K1", dryrun.STEPS, 0)
+        check_launches(f"dry run, rank {r['rank']}", r["launches"], "K1", dryrun.STEPS, None)
     got = dict(ranks=SHARDED_RANKS, envs_per_rank=DRYRUN_ENVS // SHARDED_RANKS,
                launches=[r["launches"]["K1"] for r in out["ranks"]],
                largest_rel_loss_diff=max(out["rel"].values()), rel=out["rel"],
@@ -2046,7 +2169,7 @@ def sharded_loop_rank(exp: str) -> dict:
         launches = dict(step_kernel.CONTROL_STEP.launches)
         steps = r5_control_steps(trainer, cfg)
         check_launches(f"sharded loop, rank {trainer.mesh.rank} ({phase})", launches, "K2",
-                       steps, plain[0])
+                       steps, plain)
         # rank 0 wrote the gathered snapshot before train() returned
         snap = CheckpointManager(os.path.join(exp, "checkpoints")).restore("latest")
         check_r5_snapshot(f"sharded loop ({phase})", snap, updates)
@@ -2150,11 +2273,13 @@ def main() -> int:
                                                                   rot),
             sms=torch.cuda.get_device_properties(0).multi_processor_count)
     print("control_step_warp occupancy:", json.dumps(occupancy), flush=True)
-    checks, timings, path_timings = {}, {}, {}
+    checks, timings, path_timings, feet = {}, {}, {}, []
     for variant, env in envs.items():
         batches = CHECK_BATCHES + PATH_BATCHES.get(variant, ())
         results = dict(zip(batches, (check_variant(env, variant, b) for b in batches)))
         checks[variant] = [r[0] for r in results.values()]
+        feet += [check_foot_positions(env, variant, results[b][1][0][0])
+                 for b in FOOT_BATCHES.get(variant, ())]
         timings[variant] = time_variant(env, variant, *results[NUM_ENVS][1])
         path_timings[variant] = {str(b): time_variant(env, variant, *results[b][1])
                                  for b in PATH_BATCHES.get(variant, ())}
@@ -2256,6 +2381,33 @@ def main() -> int:
                           for b, p in path_timings[variant].items()},
             occupancy=occupancy[variant],
         ))
+    # timed at the bench's fleet (its launches are the bench's), and at
+    # every batch checked
+    foot = feet[0]
+    kernels.append(dict(
+        name="foot_positions",
+        route="cuda",
+        source="steppingstone_tpu_torch/csrc/control_step.cu",
+        replaces="steppingstone_tpu_torch/physics/kinematics.py:42 "
+                 "forward_kinematics(model, q).pos[:, feet]",
+        specialization="any model, joint_rot or not",
+        design="thread per env and foot",
+        launches=FOOT_LAUNCHES["bench"],
+        other_paths={k: n for k, n in FOOT_LAUNCHES.items() if k != "bench"},
+        max_abs_err=max(f["max_abs_err"] for f in feet),
+        checked_batches=[f"{f['robot']} {f['batch']}" for f in feet],
+        ms=foot["ms"],
+        plain_ms=foot["plain_ms"],
+        bound_ms=foot["bound_ms"],
+        bound_by=foot["bound_by"],
+        batch=foot["batch"],
+        wrapper_ms=foot["wrapper_ms"],
+        flops=foot["flops"],
+        bytes=foot["bytes"],
+        path_batches={f"{f['robot']} {f['batch']}": {k: f[k] for k in ("ms", "wrapper_ms",
+                                                                        "bound_ms", "plain_ms")}
+                      for f in feet},
+    ))
     print(f"wall: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print("card:", card)

@@ -46,6 +46,10 @@
 // the struct, which would pass the classic 4 KB kernel-parameter limit with
 // them: they are a small (NB, 4) device array read with __ldg loads, and a
 // bit mask `rot_rows` marks the rows that are not the identity.
+//
+// Beside them, `foot_positions` (a thread per env and foot) computes the
+// feet's world positions that the env reads after each reset and step; it
+// shares the model's struct and the quaternion helpers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,6 +122,65 @@ __device__ __forceinline__ void inertia_mul(float m, const float* c, const float
   o[3] = hl[0];
   o[4] = hl[1];
   o[5] = hl[2];
+}
+
+// ===========================================================================
+// foot_positions: the world origins of a few bodies of each env (the feet,
+// which the env reads after every reset and every control step), a thread
+// per (env, body).
+//
+// Replaces the plain forward kinematics over every body on the card
+// (`forward_kinematics(model, q).pos[:, feet]`, physics/kinematics.py), a
+// graph node per tensor op, ~46 a body. A thread walks only its body's chain
+// of ancestors, root to body, with the pose in registers: pos_i = pos_p +
+// R(quat_p) anchor_i and quat_i = quat_p [* jrot_i] * axis_angle(axis_i,
+// q_j), the plain version's products in its order (with fixed joint
+// rotations on every row, as the plain version multiplies every row). The
+// body's own orientation moves no origin, so the walk stops at its position.
+// Nothing is clamped and nothing exits early: a non-finite input propagates
+// as in the plain version.
+//
+// Bound: latency. A thread runs ~60 dependent fp32 operations a link over up
+// to 8 links; at the envs a step runs (16 to 4,096) the launch and one
+// chain's latency are the time, and the rest of the card idles.
+//
+// chains: (nchains, MAXB + 1) int32, row c = [n, the n bodies from the
+// root's child down to body c]; q (B, NB + 6), out (B, nchains, 3), both
+// row-major.
+// ===========================================================================
+
+#define FOOT_THREADS 128  // threads per block of foot_positions
+
+__global__ void __launch_bounds__(FOOT_THREADS)
+foot_positions(const ModelData* __restrict__ gm, const int* __restrict__ chains, int nchains,
+               const float* __restrict__ jrot, int B, const float* __restrict__ q,
+               float* __restrict__ out) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long)B * nchains) return;
+  const ModelData& g = *gm;
+  const float* const qe = q + t / nchains * (g.nb + 6);
+  const int* const chain = chains + (t % nchains) * (MAXB + 1);
+  float pos[3] = {qe[0], qe[1], qe[2]};
+  float quat[4] = {qe[3], qe[4], qe[5], qe[6]};
+  const int n = __ldg(chain);
+  for (int k = 1; k <= n; ++k) {
+    const int i = __ldg(chain + k);
+    float r[3];
+    qrot(quat, g.anchor[i], r);
+    for (int a = 0; a < 3; ++a) pos[a] = pos[a] + r[a];
+    if (k == n) break;
+    float frame[4] = {quat[0], quat[1], quat[2], quat[3]};
+    if (jrot != nullptr) {  // fixed frame rotation before the hinge
+      const float jr[4] = {__ldg(jrot + 4 * i), __ldg(jrot + 4 * i + 1),
+                           __ldg(jrot + 4 * i + 2), __ldg(jrot + 4 * i + 3)};
+      qmul(quat, jr, frame);
+    }
+    float sh, ch;
+    sincosf(0.5f * qe[6 + i], &sh, &ch);
+    const float hinge[4] = {ch, g.axis[i][0] * sh, g.axis[i][1] * sh, g.axis[i][2] * sh};
+    qmul(frame, hinge, quat);
+  }
+  for (int a = 0; a < 3; ++a) out[3 * t + a] = pos[a];
 }
 
 // ===========================================================================
@@ -824,6 +887,20 @@ int control_step_launch(const ModelData* model, int B, int S, int pd, int plank,
   }
 #undef WARP_ARGS
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// Launch foot_positions on `stream`: out (B, nchains, 3) <- the world
+// origins of the chains' last bodies at q (B, NB + 6), with `model_dev` a
+// copy of the model on the device, `chains` (nchains, MAXB + 1) int32 on the
+// device and jrot (NB, 4), or null for a model without fixed joint
+// rotations. Returns the CUDA error of the launch (0 = launched).
+int foot_positions_launch(const ModelData* model_dev, const int* chains, int nchains,
+                          const float* jrot, int B, const float* q, float* out, void* stream) {
+  const long threads = (long)B * nchains;
+  if (threads == 0) return 0;
+  foot_positions<<<(unsigned)((threads + FOOT_THREADS - 1) / FOOT_THREADS), FOOT_THREADS, 0,
+                   (cudaStream_t)stream>>>(model_dev, chains, nchains, jrot, B, q, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ from steppingstone_tpu_torch.core import quaternion as qt
 from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
-from steppingstone_tpu_torch.physics import engine
+from steppingstone_tpu_torch.physics import engine, step_kernel
 from steppingstone_tpu_torch.physics import kinematics as km
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.engine import PhysicsState
@@ -239,9 +239,10 @@ def _foot_bodies(model: RobotModel) -> tuple:
     return right, left
 
 
-def _foot_xyz(model: RobotModel, q: torch.Tensor, feet: torch.Tensor) -> torch.Tensor:
-    """(B, 2, 3) world foot link origins; `feet` holds `_foot_bodies` on q's device."""
-    return km.forward_kinematics(model, q).pos[:, feet]
+def _foot_xyz(model: RobotModel, q: torch.Tensor, feet: tuple) -> torch.Tensor:
+    """(B, 2, 3) world foot link origins; `feet` is `_foot_bodies(model)`.
+    On the card one launch of the `foot_positions` kernel."""
+    return step_kernel.foot_positions(model, q, feet)
 
 
 def _broadcast(value, like: torch.Tensor) -> torch.Tensor:
@@ -310,9 +311,9 @@ class StepperEnv:
         low = torch.min(km.contact_points(model, kin)[0, :, 2]
                         - torch.as_tensor(model.contact_radius))
         self.standing_height = float(base[2] - low)
+        self._feet = _foot_bodies(model)  # the foot kernel's bodies, host ints
         # constants a reset or step reads, on the device once (a step copies
         # nothing from the host)
-        self._feet = torch.as_tensor(_foot_bodies(model), device=self.device)
         self._root0 = torch.tensor([0.3, 0.0, self.standing_height + 0.015], device=self.device)
         # mirror transforms (sign, permutation) for obs and action
         neg_o, r_o, l_o, neg_a, r_a, l_a = self.get_mirror_indices()

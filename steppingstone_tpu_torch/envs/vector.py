@@ -35,7 +35,7 @@ from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.stepper import (EnvState, EnvStepDraws, ResetDraws, StepperEnv,
                                                   create_temp_states)
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
-from steppingstone_tpu_torch.physics.step_kernel import CONTROL_STEP
+from steppingstone_tpu_torch.physics.step_kernel import CONTROL_STEP, FOOT_POSITIONS
 from steppingstone_tpu_torch.tracing import span
 
 GRAPH_WARMUP_STEPS = 3  # eager steps on a side stream before a capture (torch.cuda.graphs)
@@ -98,10 +98,11 @@ class _GraphedStep:
     call is one real step: its inputs are copied into the static inputs
     and its outputs out of the graph into fresh tensors.
 
-    `CONTROL_STEP.launches` counts what ran: an eager step its launch, a
-    capture none, a replay the launches its graph holds. The spans inside
-    the step (`env.reset`, `physics.entry`, `physics.launch`) are recorded
-    in the warm-up and at the capture, not at a replay."""
+    `CONTROL_STEP.launches` and `FOOT_POSITIONS.launches` count what ran:
+    an eager step its launches, a capture none, a replay the launches its
+    graph holds. The spans inside the step (`env.reset`, `physics.entry`,
+    `physics.launch`) are recorded in the warm-up and at the capture, not
+    at a replay."""
 
     def __init__(self, key: tuple, env: StepperEnv, args: tuple):
         self.key, self.env, self.graph, self.warm = key, env, None, 0
@@ -110,6 +111,7 @@ class _GraphedStep:
         self.args = _rebuild(args, iter(self.in_leaves))
         self.outs = self.tree = self.out_buffers = None
         self.launched: dict = {}
+        self.feet_launched = 0
         self.side = torch.cuda.Stream(env.device)
 
     def _step(self) -> list:
@@ -141,7 +143,7 @@ class _GraphedStep:
             return self._fresh(buffers)
         if self.graph is None:
             self.out_buffers = self.outs.buffers(self.env.device)
-            before = dict(CONTROL_STEP.launches)
+            before, feet_before = dict(CONTROL_STEP.launches), FOOT_POSITIONS.launches
             graph = torch.cuda.CUDAGraph()
             # thread_local: a sync on this thread still fails the capture,
             # another thread's (a process group's watchdog) does not
@@ -150,12 +152,15 @@ class _GraphedStep:
                 _copy(self.outs.views(self.out_buffers), self._step())
             self.launched = {k: n - before[k] for k, n in CONTROL_STEP.launches.items()
                              if n != before[k]}
+            self.feet_launched = FOOT_POSITIONS.launches - feet_before
             CONTROL_STEP.launches.update(before)  # the capture ran nothing
+            FOOT_POSITIONS.launches = feet_before
             self.graph = graph
             tracing.count("env.graph.captures")
         self.graph.replay()
         for k, n in self.launched.items():
             CONTROL_STEP.launches[k] += n
+        FOOT_POSITIONS.launches += self.feet_launched
         tracing.count("env.graph.replays")
         return self._fresh({dt: b.clone() for dt, b in self.out_buffers.items()})
 

@@ -19,10 +19,16 @@ It is built with nvcc from the repo's source at first use into `build/`
 (listed in .gitignore) and bound with ctypes; each call builds nothing once
 the library for the current source exists.
 
-`control_step` is the only entry: CPU tensors run the plain PyTorch
-version `engine._step_scan`; CUDA tensors launch the kernel or raise —
-there is no fallback. `CONTROL_STEP.launches[variant]` counts launches
-of each variant (`VARIANTS`).
+`control_step` is the control step's only entry: CPU tensors run the
+plain PyTorch version `engine._step_scan`; CUDA tensors launch the kernel
+or raise — there is no fallback. `CONTROL_STEP.launches[variant]` counts
+launches of each variant (`VARIANTS`).
+
+The same library holds `foot_positions`, the world origins of a few bodies
+(the env's feet), a thread per env and body walking the body's chain of
+ancestors. Its entry `foot_positions` runs the plain forward kinematics
+on CPU tensors and the kernel on CUDA tensors; `FOOT_POSITIONS.launches`
+counts its launches.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from steppingstone_tpu_torch.physics import engine
+from steppingstone_tpu_torch.physics import engine, kinematics
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.dynamics import GRAVITY, _ancestor_mask
 from steppingstone_tpu_torch.physics.model import RobotModel
@@ -275,23 +281,41 @@ class ControlStepKernel:
             for name, (kernel, binding) in mirrors.items():
                 if kernel != binding:
                     raise RuntimeError(f"{name} mismatch: kernel {kernel}, binding {binding}")
+            if hasattr(lib, "foot_positions_launch"):  # sources before it lack it
+                lib.foot_positions_launch.restype = ctypes.c_int
+                lib.foot_positions_launch.argtypes = (
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int] + [ctypes.c_void_p] * 3)
             self._lib = lib
         return time.perf_counter() - t0
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(VARIANTS, 0)
 
-    def _warp_operands(self, key, model, n_stones: int, plank: bool, device):
-        """control_step_warp's device operands, cached: the model data of
-        `key` (a key of `_models`) copied to `device`, whose per-body,
-        per-joint and per-sphere arrays the lanes read each at its own
-        index, and the model's tables, after checking that the binding's
-        `warp_layout` mirror has the kernel's size for this model and stone
-        count."""
+    def model_data(self, key, device):
+        """The model data of `key` ((model, contact params, substeps)) and
+        its copy on `device`, whose per-body, per-joint and per-sphere
+        arrays a kernel's threads read each at its own index; cached."""
+        md = self._models.get(key)
+        if md is None:
+            md = self._models[key] = _model_data(*key)
         copy_key = (*key, device)
         if copy_key not in self._model_copies:
-            self._model_copies[copy_key] = torch.frombuffer(
-                bytearray(self._models[key]), dtype=torch.uint8).to(device)
+            self._model_copies[copy_key] = torch.frombuffer(bytearray(md),
+                                                            dtype=torch.uint8).to(device)
+        return md, self._model_copies[copy_key]
+
+    def joint_rotations(self, model, device):
+        """`_joint_rotations(model, device)`, cached."""
+        key = (model, device)
+        if key not in self._rotations:
+            self._rotations[key] = _joint_rotations(model, device)
+        return self._rotations[key]
+
+    def _warp_tables(self, model, n_stones: int, plank: bool, device):
+        """control_step_warp's tables on `device`, cached, after checking
+        that the binding's `warp_layout` mirror has the kernel's size for
+        this model and stone count."""
         key = (model, n_stones, plank, device)
         if key not in self._tables:
             kernel = self._lib.control_step_warp_floats(model.nbodies, model.ncontacts, n_stones,
@@ -302,7 +326,7 @@ class ControlStepKernel:
                                    f"floats, binding {binding}")
             tab, nlev, npairs = kernel_tables(model)
             self._tables[key] = (torch.as_tensor(tab, device=device), nlev, npairs)
-        return (self._model_copies[copy_key], *self._tables[key])
+        return self._tables[key]
 
     def warp_envs_per_sm(self, model, n_stones: int, pd: bool, plank: bool,
                          rot: bool = False) -> int:
@@ -328,10 +352,6 @@ class ControlStepKernel:
         tensors. Callers check inputs (`control_step` does)."""
         with span("physics.launch"):
             self.build()
-            model_key = (model, cparams, substeps)
-            md = self._models.get(model_key)
-            if md is None:
-                md = self._models[model_key] = _model_data(model, cparams, substeps)
             pd, plank = target_t is not None, support_hy is not None
             rot = model.joint_rot is not None
             name = variant(pd, plank, rot)
@@ -342,16 +362,11 @@ class ControlStepKernel:
             # the plank bound |y_l| <= hy + margin, rounded to f32 once, as the
             # plain version compares against the same sum
             hy_margin = float(support_hy) + cparams.margin if plank else 0.0
-            jrot, rot_rows = None, 0
-            if rot:
-                key = (model, q_t.device)
-                if key not in self._rotations:
-                    self._rotations[key] = _joint_rotations(model, q_t.device)
-                jrot, rot_rows = self._rotations[key]
+            jrot, rot_rows = self.joint_rotations(model, q_t.device) if rot else (None, 0)
             with torch.cuda.device(q_t.device):
                 stream = torch.cuda.current_stream(q_t.device).cuda_stream
-                md_dev, tables, nlev, npairs = self._warp_operands(model_key, model, S, plank,
-                                                                   q_t.device)
+                md, md_dev = self.model_data((model, cparams, substeps), q_t.device)
+                tables, nlev, npairs = self._warp_tables(model, S, plank, q_t.device)
                 ins = (md_dev, tables, jrot, q_t, qd_t, tau_t, target_t, power, stones_t,
                        stone_radius, use_ground)
                 err = self._lib.control_step_launch(
@@ -372,6 +387,76 @@ def to_kernel_layout(q, qd, tau, stones, stone_radius, use_ground):
 
 
 CONTROL_STEP = ControlStepKernel()
+
+
+def foot_chains(model: RobotModel, bodies) -> np.ndarray:
+    """`foot_positions`'s chains: (len(bodies), MAXB + 1) int32, row c =
+    [n, the n bodies from the root's child down to bodies[c]]."""
+    if model.nbodies > MAXB:
+        raise ValueError(f"{model.name}: {model.nbodies} bodies exceed the kernel's {MAXB}")
+    chains = np.zeros((len(bodies), MAXB + 1), np.int32)
+    for c, body in enumerate(bodies):
+        path = []
+        while body != 0:
+            path.append(int(body))
+            body = int(model.parent[body])
+        chains[c, 0] = len(path)
+        chains[c, 1:1 + len(path)] = path[::-1]
+    return chains
+
+
+class FootPositionKernel:
+    """Launches `foot_positions` from the control-step kernels' library
+    (`kernels`), with the model data and joint rotations of its caches;
+    `launches` counts its launches."""
+
+    def __init__(self, kernels: ControlStepKernel):
+        self.kernels = kernels
+        self.launches = 0
+        self._chains: dict = {}
+
+    def launch(self, model: RobotModel, q: torch.Tensor, bodies: tuple) -> torch.Tensor:
+        """(B, len(bodies), 3) world origins of `bodies` at q (B, nq), a
+        contiguous float32 CUDA tensor, on the current stream."""
+        self.kernels.build()
+        dev = q.device
+        # the kernel reads only the model's axes and anchors, so any copy of
+        # its data serves: that of the default contact parameters is the
+        # control step's own for every env that keeps them
+        _, md_dev = self.kernels.model_data((model, ContactParams(), engine.SUBSTEPS), dev)
+        jrot = None if model.joint_rot is None else self.kernels.joint_rotations(model, dev)[0]
+        if (model, bodies, dev) not in self._chains:
+            self._chains[model, bodies, dev] = torch.as_tensor(foot_chains(model, bodies),
+                                                               device=dev)
+        chains, B = self._chains[model, bodies, dev], q.shape[0]
+        out = torch.empty((B, len(bodies), 3), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self.kernels._lib.foot_positions_launch(
+                md_dev.data_ptr(), chains.data_ptr(), len(bodies),
+                None if jrot is None else jrot.data_ptr(), B, q.data_ptr(), out.data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"foot_positions kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+FOOT_POSITIONS = FootPositionKernel(CONTROL_STEP)
+
+
+def foot_positions(model: RobotModel, q: torch.Tensor, bodies: tuple) -> torch.Tensor:
+    """(B, len(bodies), 3) world origins of `bodies` (Python ints) at q
+    (B, nq) float32. CPU tensors run the plain forward kinematics; CUDA
+    tensors launch `foot_positions` on the current stream (a graph being
+    captured takes it in) or raise — there is no fallback."""
+    if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != model.nq:
+        raise ValueError(f"q: {q.dtype} {tuple(q.shape)}, expected float32 (B, {model.nq})")
+    if q.device.type == "cpu":
+        return kinematics.forward_kinematics(model, q).pos[:, list(bodies)]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return FOOT_POSITIONS.launch(model, q.contiguous(), tuple(bodies))
 
 
 def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_ground,

@@ -19,9 +19,11 @@ JSON line per setting:
 - `host_ms`: each span path's host time (and self time) per control step
   or per minibatch step, and the host syncs inside it per step;
 - `metrics`: policy_host_ms, env_step_host_ms, physics_entry_host_ms,
-  syncs_per_env_step and graph_replays_per_env_step (the replays of the
+  syncs_per_env_step, graph_replays_per_env_step (the replays of the
   captured env step, envs/vector.py: 1.0 on the card once captured, 0 on
-  the CPU) per control step, ppo_step_host_ms, syncs_per_ppo_step and
+  the CPU) and foot_launches_per_env_step (the `foot_positions` kernel's
+  launches, physics/step_kernel.py: 2.0 on the card, 0 on the CPU) per
+  control step, ppo_step_host_ms, syncs_per_ppo_step and
   graph_replays_per_ppo_step (the replays of the captured minibatch step,
   agents/ppo.py: 1.0 on the card once captured, 0 on the CPU) per
   minibatch step, reset_share (env.reset over env.step). On the card
@@ -68,6 +70,7 @@ from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.vector import VecEnv
+from steppingstone_tpu_torch.physics.step_kernel import FOOT_POSITIONS
 from steppingstone_tpu_torch.runtime import behavior_eval
 from steppingstone_tpu_torch.runtime.config import TrainConfig
 from steppingstone_tpu_torch.runtime.train import IterationDraws, Trainer
@@ -278,11 +281,13 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
     iteration(draws(), slice1)
     d = draws()
     slice2.sync()
+    feet = FOOT_POSITIONS.launches
     RECORDER.start()
     try:
         iteration(d, slice2)
     finally:
         spans, counters = RECORDER.stop()
+    feet_launches = FOOT_POSITIONS.launches - feet
     plain = abba(lambda sessions: iteration(draws(), sessions), dev)
     minibatches = cfg.ppo_epoch * cfg.num_mini_batch
     out = analyse(spans, counters, slice2, {"trainer.rollout/rollout.step": T,
@@ -296,6 +301,7 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
         ppo_step_host_ms=host[mb]["ms"],
         syncs_per_env_step=host[step]["syncs"],
         graph_replays_per_env_step=counters.get("env.graph.replays", 0) / T,
+        foot_launches_per_env_step=feet_launches / T,
         syncs_per_ppo_step=host[mb]["syncs"],
         graph_replays_per_ppo_step=counters.get("ppo.graph.replays", 0) / minibatches,
         reset_share=_share(host, f"{step}/env.step/env.reset", f"{step}/env.step"))
@@ -309,6 +315,7 @@ def eval_probe(dev: torch.device, envs: int = EVAL_ENVS, steps: int = TRACE_STEP
     policy = ActorCritic(env.observation_dim, env.action_dim, 1, device=dev,
                          generator=torch.Generator().manual_seed(0))
     cur = terr.default_curriculum(EVAL_LEVEL, batch=envs, device=dev)
+    feet = 0  # the foot kernel's launches before the first step of the last entry
 
     def entry(steps, sessions=None):
         step_draws = [env.draw_step(cur, venv.generator) for _ in range(steps)]
@@ -316,8 +323,11 @@ def eval_probe(dev: torch.device, envs: int = EVAL_ENVS, steps: int = TRACE_STEP
         feed = iter(step_draws)
 
         def next_draws(done):
-            if sessions and done is None:  # the first step: the reset is not in the slice
-                sessions.start("steps")
+            nonlocal feet
+            if done is None:  # the first step: the reset is not in the slice
+                feet = FOOT_POSITIONS.launches
+                if sessions:
+                    sessions.start("steps")
             return next(feed)
 
         behavior_eval.evaluate_entry(venv, policy, cur, steps, reset, next_draws)
@@ -332,6 +342,7 @@ def eval_probe(dev: torch.device, envs: int = EVAL_ENVS, steps: int = TRACE_STEP
         entry(steps, slice2)
     finally:
         spans, counters = RECORDER.stop()
+    feet_launches = FOOT_POSITIONS.launches - feet
     plain = abba(lambda sessions: entry(steps, sessions), dev)
     step = "eval.entry/eval.step"
     out = analyse(spans, counters, slice2, {step: steps})
@@ -342,6 +353,7 @@ def eval_probe(dev: torch.device, envs: int = EVAL_ENVS, steps: int = TRACE_STEP
         physics_entry_host_ms=_ms(host, f"{step}/env.step/physics.entry"),
         syncs_per_env_step=host[step]["syncs"],
         graph_replays_per_env_step=counters.get("env.graph.replays", 0) / steps,
+        foot_launches_per_env_step=feet_launches / steps,
         reset_share=_share(host, f"{step}/env.step/env.reset", f"{step}/env.step"))
     return _finish("eval", out, slice1, slice2, plain, dict(control_steps=steps, envs=envs))
 

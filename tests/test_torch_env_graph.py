@@ -17,8 +17,11 @@ called eagerly bit for bit (Walker3D K2 at 1,024 and 16 envs, Cassie
 K2+K3 at 1,024), the tensors a step returns are not written by the next
 one and the caller's inputs not at all; one capture, then a replay a
 step; `CONTROL_STEP.launches` rises by one a control step, the capture's
-included; no host sync in a replayed step; a new batch size or config
-captures again.
+included, and only for the fleet's variant, `FOOT_POSITIONS.launches` by
+two; no host sync in a replayed step; a new batch size or config
+captures again; the `foot_positions` kernel equals the plain forward
+kinematics' feet (1e-5 + 1e-6 |x|) at 1, 16, 256 and 1,024 envs
+(Walker3D, Cassie, rotated Walker3D).
 """
 
 import pytest
@@ -30,8 +33,11 @@ from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs import vector
 from steppingstone_tpu_torch.envs.stepper import _foot_bodies
 from steppingstone_tpu_torch.envs.vector import VecEnv
-from steppingstone_tpu_torch.physics import engine
-from steppingstone_tpu_torch.physics.step_kernel import CONTROL_STEP
+from steppingstone_tpu_torch.physics import engine, kinematics, step_kernel
+from steppingstone_tpu_torch.physics.model import with_rotated_frames
+from steppingstone_tpu_torch.physics.robots.cassie import cassie
+from steppingstone_tpu_torch.physics.robots.walker3d import walker3d
+from steppingstone_tpu_torch.physics.step_kernel import CONTROL_STEP, FOOT_POSITIONS
 from steppingstone_tpu_torch.tracing import RECORDER
 
 ENVS = {"walker3d": ("Walker3DStepperEnv-v0", "K2"), "cassie": ("CassieStepper-v1", "K2+K3")}
@@ -82,13 +88,14 @@ def test_eager_path_never_captures_on_the_cpu(monkeypatch):
     for name in ("CUDAGraph", "graph", "Stream"):
         monkeypatch.setattr(torch.cuda, name, refuse)
     venv, state, obs, g = _fleet("walker3d", 4, "cpu")
+    feet = FOOT_POSITIONS.launches
     RECORDER.start()
     try:
         for _ in range(3):
             state, out = venv.step(state, _actions(venv, g))
     finally:
         spans, counters = RECORDER.stop()
-    assert venv._graph is None
+    assert venv._graph is None and FOOT_POSITIONS.launches == feet
     assert not any(k.startswith("env.graph") for k in counters)
     names = [s.name for s in spans]
     assert names.count("env.step") == names.count("physics.entry") == names.count("env.reset") == 3
@@ -200,7 +207,7 @@ def test_constants_are_made_once():
     assert torch.equal(qt.inv(q), q * q.new_tensor([1.0, -1.0, -1.0, -1.0]))
     assert qt._CONJUGATE[(q.dtype, q.device)] is sign
     env = make_env(ENVS["walker3d"][0], device="cpu")
-    assert env._feet.tolist() == list(_foot_bodies(env.cfg.model))
+    assert env._feet == _foot_bodies(env.cfg.model)
 
 
 # ----------------------------------------------------------------------
@@ -244,7 +251,7 @@ def test_graphed_trajectory_equals_eager_on_the_card(card, name, envs):
 @pytest.mark.card
 def test_one_capture_and_a_launch_a_step_on_the_card(card):
     venv, state, obs, g = _fleet("cassie", 256, torch.device("cuda"))
-    before = dict(CONTROL_STEP.launches)
+    before, feet = dict(CONTROL_STEP.launches), FOOT_POSITIONS.launches
     RECORDER.start()
     try:
         for _ in range(12):
@@ -255,6 +262,7 @@ def test_one_capture_and_a_launch_a_step_on_the_card(card):
     after = CONTROL_STEP.launches
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert launched == {ENVS["cassie"][1]: 12}
+    assert FOOT_POSITIONS.launches - feet == 2 * 12  # the auto-reset's and the step's
     assert counters["env.graph.captures"] == 1
     assert counters["env.graph.replays"] == 12 - vector.GRAPH_WARMUP_STEPS
     names = [s.name for s in spans]
@@ -307,3 +315,47 @@ def test_new_batch_size_or_config_captures_again_on_the_card(card):
     assert first is not second and venv._graph is not second
     assert first.args[0].phys.q.shape[0] == 16 and second.args[0].phys.q.shape[0] == 8
     assert venv._graph.key[0] is venv.env.cfg
+
+
+def _poses(model, batch: int, seed: int) -> torch.Tensor:
+    """Random poses: root anywhere and turned anyhow, joints past their
+    limits; with more than one env, env 1 has a NaN in the angle of the
+    joint above the right foot."""
+    g = torch.Generator().manual_seed(seed)
+    q = engine.default_state(model, batch).q.clone()
+    q[:, :3] += torch.randn((batch, 3), generator=g)
+    quat = torch.randn((batch, 4), generator=g)
+    q[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    lo, hi = (torch.as_tensor(x, dtype=torch.float32) for x in (model.joint_lower,
+                                                                 model.joint_upper))
+    q[:, 7:] = lo - 0.3 + (hi - lo + 0.6) * torch.rand((batch, model.njoints), generator=g)
+    if batch > 1:
+        q[1, 6 + int(model.parent[_foot_bodies(model)[0]])] = float("nan")
+    return q
+
+
+FOOT_MODELS = {"walker3d": walker3d, "cassie": cassie,
+               "walker3d_rotated": lambda: with_rotated_frames(walker3d(), seed=3)}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("envs", [1, 16, 256, 1024])
+@pytest.mark.parametrize("name", list(FOOT_MODELS))
+def test_foot_kernel_equals_plain_kinematics_on_the_card(card, name, envs):
+    """One launch of `foot_positions` against the plain forward kinematics'
+    feet, on the card and on the CPU, within 1e-5 + 1e-6 |x| (Walker3D,
+    Cassie, and Walker3D with fixed joint rotations); a NaN propagates as
+    in the plain version (the right foot, not the left)."""
+    model = FOOT_MODELS[name]()
+    feet = _foot_bodies(model)
+    q = _poses(model, envs, seed=envs).cuda()
+    before = FOOT_POSITIONS.launches
+    out = step_kernel.foot_positions(model, q, feet)
+    assert FOOT_POSITIONS.launches == before + 1
+    for ref in (kinematics.forward_kinematics(model, q).pos[:, list(feet)],
+                kinematics.forward_kinematics(model, q.cpu()).pos[:, list(feet)]):
+        torch.testing.assert_close(out, ref.to(out.device), rtol=1e-6, atol=1e-5,
+                                   equal_nan=True)
+        assert torch.equal(out.isnan(), ref.isnan().to(out.device))
+    if envs > 1:
+        assert out[1, 0].isnan().all() and out[1, 1].isfinite().all()

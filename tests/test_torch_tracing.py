@@ -308,8 +308,10 @@ def test_span_probe_at_a_tiny_size():
         r["profiler_inflation"]) == {"rollout", "update", "all"}
     assert r["idle_attributed"] > 0.9 and r["launches"] is None
     assert all(p.split("/")[0] in ("rollout", "update") for p in r["idle_ms"])
+    assert m["foot_launches_per_env_step"] == 0  # the plain kinematics on the CPU
     r = span_probe.eval_probe(cpu, envs=4, steps=2)
     assert r["spans_per_step"] == {"eval.entry/eval.step": 5}
+    assert r["metrics"]["foot_launches_per_env_step"] == 0
     assert set(r["overhead"]) == {"steps", "all"}
 
 

@@ -25,7 +25,9 @@ K4, K3+K4, K2+K4 and K2+K3+K4 to its `joint_rot` variant (with
 tests/test_torch_physics.py) on a slice of its 1024-env tile. This checks
 the kernel's lane mapping, indexing, tables, synchronisation, PD terms,
 plank bound and rotated frames; its speed and the CUDA compiler's view of
-it only the card shows (tests/test_torch_structure.py, chip_smoke.py)."""
+it only the card shows (tests/test_torch_structure.py, chip_smoke.py).
+The same build emulates foot_positions, the feet's world origins, against
+the plain forward kinematics on Walker3D, Cassie and rotated Walker3D."""
 
 import ctypes
 import dataclasses
@@ -47,6 +49,7 @@ from steppingstone_tpu.physics import dynamics as jdyn
 from steppingstone_tpu.physics import engine as jeng
 from steppingstone_tpu.physics import pallas_step
 from steppingstone_tpu.physics.model import build_model as jbuild
+from steppingstone_tpu_torch.envs.stepper import _foot_bodies
 from steppingstone_tpu_torch.physics import engine, kinematics, step_kernel
 from steppingstone_tpu_torch.physics.contact import ContactParams
 from steppingstone_tpu_torch.physics.model import build_model, with_rotated_frames
@@ -106,14 +109,28 @@ extern "C" int emulate_warp(const ModelData* m, int B, int S, int pd, int plank,
   }
   return lay.size;
 }
+
+// foot_positions over a batch as foot_positions_launch grids it: block after
+// block of FOOT_THREADS threads, warp after warp; returns the blocks, or -2
+// if a warp's lanes diverge at a meeting point
+extern "C" int emulate_feet(const ModelData* m, const int* chains, int nchains,
+                            const float* jrot, int B, const float* q, float* out) {
+  const int blocks = (int)(((long)B * nchains + FOOT_THREADS - 1) / FOOT_THREADS);
+  const std::function<void()> body = [&] { foot_positions(m, chains, nchains, jrot, B, q, out); };
+  for (int b = 0; b < blocks; ++b)
+    for (int w = 0; w < FOOT_THREADS / 32; ++w)
+      if (!warp_emulation::run_warp(body, b, w, FOOT_THREADS, false)) return -2;
+  return blocks;
+}
 """
 # the host-launch code starts here (<<< >>>); the kernels and helpers before it
 CUT = "template <bool PD, bool PLANK, bool ROT>\nstatic cudaError_t warp_prepare("
 
 
 def _build(tmp, src):
-    """control_step_warp's part of `src` compiled against warp_emulation.h
-    into `tmp` -> its `emulate_warp`."""
+    """The kernels' part of `src` (control_step_warp and foot_positions)
+    compiled against warp_emulation.h into `tmp` -> the library, with its
+    `emulate_warp` and `emulate_feet`."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a host C++ compiler is needed"
     part = src[:src.index(CUT)].replace("#include <cuda_runtime.h>", "")
@@ -122,17 +139,27 @@ def _build(tmp, src):
     lib = tmp / "libwarp_emulation.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(HERE), "-o", str(lib),
                     str(tmp / "harness.cpp")], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).emulate_warp
+    built = ctypes.CDLL(str(lib))
+    fn = built.emulate_warp
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.POINTER(step_kernel._ModelData)] + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 12 + [ctypes.c_int])
-    return fn
+    feet = built.emulate_feet
+    feet.restype = ctypes.c_int
+    feet.argtypes = [ctypes.POINTER(step_kernel._ModelData), ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return built
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated_library(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("warp_emulation"), step_kernel.SOURCE.read_text())
+
+
+@pytest.fixture(scope="module")
+def emulated(emulated_library):
+    return emulated_library.emulate_warp
 
 
 def _run(emulated, model, args, target=None, power=None, support_hy=None, descending=False):
@@ -323,7 +350,7 @@ def test_emulation_sees_a_missing_syncwarp(emulated, tmp_path):
     src = step_kernel.SOURCE.read_text()
     contacts = "\n\n    // ---- contacts: the deepest valid support"
     assert src.count("    __syncwarp();" + contacts) == 1
-    faulty = _build(tmp_path, src.replace("    __syncwarp();" + contacts, contacts))
+    faulty = _build(tmp_path, src.replace("    __syncwarp();" + contacts, contacts)).emulate_warp
     make, plank, n_stones, batch, _ = CASES["walker3d_plank"]
     model = make()
     args, _, _ = _inputs(model, batch, n_stones, plank, seed=3)
@@ -408,3 +435,48 @@ def test_emulated_rotated_kernel_matches_pallas_interpret(emulated, pd, support_
     if support_hy is not None:  # and so does the plank: a disc bound differs
         disc = _emulate(emulated, mt, args, **pd_kw)
         assert (disc[1] - out[1]).abs().max() > 1e-2
+
+
+FOOT_MODELS = {"walker3d": walker3d, "cassie": cassie, "walker3d_rotated": _rot_walker3d}
+
+
+@pytest.mark.parametrize("name", list(FOOT_MODELS))
+def test_emulated_foot_kernel_matches_plain_kinematics(emulated_library, name):
+    """foot_positions, emulated at a ragged batch (the last block has idle
+    threads), against the plain forward kinematics' feet (1e-5 + 1e-6 |x|)
+    on random poses: root anywhere and turned anyhow, joints past their
+    limits; in one env a NaN in the angle of the joint above the right foot
+    makes that foot NaN and leaves the left one finite, as in the plain
+    version."""
+    torch.set_num_threads(1)
+    model = FOOT_MODELS[name]()
+    feet = _foot_bodies(model)
+    batch = 70
+    g = torch.Generator().manual_seed(len(name))
+    q = engine.default_state(model, batch).q.clone()
+    q[:, :3] += torch.randn((batch, 3), generator=g)
+    quat = torch.randn((batch, 4), generator=g)
+    q[:, 3:7] = quat / quat.norm(dim=1, keepdim=True)
+    lo, hi = (torch.as_tensor(x, dtype=torch.float32) for x in (model.joint_lower,
+                                                                 model.joint_upper))
+    q[:, 7:] = lo - 0.3 + (hi - lo + 0.6) * torch.rand((batch, model.njoints), generator=g)
+    above = int(model.parent[feet[0]])
+    q[5, 6 + above] = float("nan")
+    md = step_kernel._model_data(model, ContactParams(), engine.SUBSTEPS)
+    chains = torch.as_tensor(step_kernel.foot_chains(model, feet))
+    jrot = None if model.joint_rot is None else step_kernel._joint_rotations(model, "cpu")[0]
+    out = torch.full((batch, len(feet), 3), -7.0)
+    blocks = emulated_library.emulate_feet(
+        ctypes.byref(md), chains.data_ptr(), len(feet), None if jrot is None else jrot.data_ptr(),
+        batch, q.data_ptr(), out.data_ptr())
+    assert blocks == 2  # 140 threads, 128 a block
+    ref = kinematics.forward_kinematics(model, q).pos[:, list(feet)]
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-5, equal_nan=True)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert out[5, 0].isnan().all() and out[5, 1].isfinite().all()
+    assert out[torch.arange(batch) != 5].isfinite().all()
+    torch.testing.assert_close(step_kernel.foot_positions(model, q, feet), ref, rtol=0, atol=0,
+                               equal_nan=True)  # the CPU entry is the plain version
+    if model.joint_rot is not None:  # the rotations move the feet
+        plain = kinematics.forward_kinematics(dataclasses.replace(model, joint_rot=None), q)
+        assert (plain.pos[:, list(feet)] - ref)[:5].abs().max() > 1e-2
