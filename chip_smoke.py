@@ -41,13 +41,23 @@ order; any failure exits non-zero and no phase's failure is caught:
    the behavior evaluation's and the value grid's), Cassie at 1024 (K2+K3's)
    and Walker3D with fixed joint rotations at a ragged 1000 (K4's); then
    its time per launch replayed from a CUDA graph (as the env step's graph
-   runs it), per eager call, and the plain kinematics' per eager call
+   runs it), per eager call, and the plain kinematics' per eager call; the
+   adam_step kernel (the PPO minibatch step's clip, Adam, KL gate and
+   parameter step) against the plain optimizer (agents/ppo.py
+   `_adam_plain`, tensor ops on the card) bit for bit at Walker3D's and
+   Cassie's parameter counts (ADAM_POLICIES): mu, nu and every parameter,
+   at ADAM_COUNTS step counts, unclipped and clipped gradients, the KL
+   guard off, holding and firing; then its time per launch replayed from a
+   CUDA graph (as the update's graph runs it), per eager call, and the
+   plain optimizer's, beside its bound (28 bytes a parameter at the HBM
+   rate)
 4. paths, each driven through the entry points a user calls, with the
    launch counts set to 0 just before and read just after (and no call of
    the plain version, and no launch of another variant, allowed; the
    foot_positions kernel exactly two launches an env step, the auto-reset's
    and the step's own, and one a reset outside a step, none on the paths
-   of engine.step calls):
+   of engine.step calls; the adam_step kernel one launch a PPO minibatch
+   step on every path that runs an update, none elsewhere):
    - K1: Walker3D rollout, VecEnv(4096), 25 steps, exactly 25 K1
      launches; the split of a step, a torch.profiler trace, and a small
      rollout on the card against the same rollout on the CPU
@@ -68,7 +78,7 @@ order; any failure exits non-zero and no phase's failure is caught:
      steps, one training iteration driven in its halves (Trainer.rollout,
      then Trainer.update: GAE, 10 epochs x 100 minibatches of 4096 rows),
      exactly 100 launches, every output finite, the rollout / update split
-     and profiles of both
+     (its profiles cut: the benchmark's cassie_plank.train traces both)
    - K2: Walker3D LargePlank train_iteration with mirror-augmented PPO,
      4096 envs x 25 steps, exactly 25 launches
    - one Cassie LargePlank training iteration on the card against the
@@ -156,8 +166,9 @@ order; any failure exits non-zero and no phase's failure is caught:
      (the gradient all-reduce) and per update is printed
 5. one JSON line `{"kernels": [...]}` (K1's `launches` are the bench's on
    the measurement path, each variant's other paths under `other_paths`;
-   each variant with its `design` and `occupancy`; last foot_positions,
-   its launches on the bench and on every other path checked), the script's wall
+   each variant with its `design` and `occupancy`; then foot_positions and
+   last adam_step, each with its launches on the bench and on every other
+   path checked), the script's wall
    time, the card line, and last
    `{"ok": true, "device": {...}}`
 """
@@ -294,6 +305,12 @@ CARD_CPU_EPISODE_STEPS = 30
 # K1 and K2 are also held to their plain version, and timed, at enjoy's
 # single env
 ONE_ENV = ("K1", "K2")
+# adam_step is held to the plain optimizer at these policies' parameter
+# counts (obs, actions, critics: the benchmark's Walker3D and Cassie
+# learners), at these step counts (the first, the second, one late in a
+# run and one where the bias corrections are 1)
+ADAM_POLICIES = {"Walker3D": (60, 21, 1), "Cassie": (51, 10, 2)}
+ADAM_COUNTS = (1, 2, 1000, 123_456)
 # foot_positions is held to the plain kinematics, and timed, on the states
 # of these variants' checks at these batches: the rollout paths' fleet
 # (K1, Walker3D), the round-5 fleets (K2 Walker3D, K2+K3 Cassie), the
@@ -412,11 +429,11 @@ def mangled_names() -> dict:
     """Each kernel's name and template arguments as they appear in its
     mangled name -> its variant: control_step_warp<PD, PLANK, ROT> (and
     control_step_warp<PD, PLANK> of sources before ROT, for
-    scripts/compare_sources.py's baselines), and foot_positions."""
+    scripts/compare_sources.py's baselines), foot_positions and adam_step."""
     from steppingstone_tpu_torch.physics.step_kernel import VARIANTS
 
     mangle = lambda name, flags: f"{name}ILb" + "ELb".join(str(int(b)) for b in flags) + "EE"
-    names = {"foot_positions": "foot_positions"}
+    names = {"foot_positions": "foot_positions", "adam_step": "adam_step"}
     for v, (pd, plank, rot) in VARIANTS.items():
         names[mangle("control_step_warp", (pd, plank, rot))] = v
         if not rot:
@@ -437,15 +454,21 @@ def print_ptxas(build_log: str) -> None:
 @dataclasses.dataclass
 class Counted:
     """What counting_plain counts in its block: calls of the plain control
-    step, env resets on the card made outside an env step, and the
-    foot_positions kernel's launches."""
+    step, env resets on the card made outside an env step, the
+    foot_positions kernel's launches, the PPO minibatch steps of the
+    updates loaded (`_StepBuffers.load`) and the adam_step kernel's
+    launches."""
     plain_calls: int = 0
     resets: int = 0
     feet: int = 0
+    minibatch_steps: int = 0
+    adam: int = 0
 
 
-# foot_positions' launches on each path checked (check_launches), by path
+# foot_positions' launches on each path checked (check_launches), by path;
+# adam_step's on each path that runs an update
 FOOT_LAUNCHES: dict = {}
+ADAM_LAUNCHES: dict = {}
 
 
 @contextlib.contextmanager
@@ -453,13 +476,21 @@ def counting_plain():
     """Counts calls of the plain control step (engine._step_scan) in the
     block, which a path on the card must not make; the env resets on the
     card made outside an env step (StepperEnv.reset, its auto-reset inside
-    StepperEnv.step left out); and the foot_positions kernel's launches,
-    set to 0 at the block's start."""
+    StepperEnv.step left out); the foot_positions kernel's launches, set to
+    0 at the block's start; the minibatch steps of every PPO update loaded
+    in the block and the adam_step kernel's launches, set to 0 at its
+    start."""
+    from steppingstone_tpu_torch.agents import ppo
     from steppingstone_tpu_torch.envs.stepper import StepperEnv
     from steppingstone_tpu_torch.physics import engine, step_kernel
 
     counted, depth = Counted(), [0]
     plain, reset, step = engine._step_scan, StepperEnv.reset, StepperEnv.step
+    load = ppo._StepBuffers.load
+
+    def counted_load(buffers, *args, **kwargs):
+        counted.minibatch_steps += buffers.history.shape[0]
+        return load(buffers, *args, **kwargs)
 
     def counted_plain(*args, **kwargs):
         counted.plain_calls += 1
@@ -478,12 +509,15 @@ def counting_plain():
 
     engine._step_scan = counted_plain
     StepperEnv.reset, StepperEnv.step = counted_reset, counted_step
-    step_kernel.FOOT_POSITIONS.launches = 0
+    ppo._StepBuffers.load = counted_load
+    step_kernel.FOOT_POSITIONS.launches = step_kernel.ADAM_STEP.launches = 0
     try:
         yield counted
     finally:
         engine._step_scan, StepperEnv.reset, StepperEnv.step = plain, reset, step
+        ppo._StepBuffers.load = load
         counted.feet = step_kernel.FOOT_POSITIONS.launches
+        counted.adam = step_kernel.ADAM_STEP.launches
 
 
 def check_launches(what: str, launches: dict, variant: str, expected: int,
@@ -493,7 +527,9 @@ def check_launches(what: str, launches: dict, variant: str, expected: int,
     their launches are checked), no plain call and two foot_positions
     launches an env step
     (its auto-reset's and its own; `env_steps` by default `expected`, 0 on
-    a path of engine.step calls) and one a reset outside a step."""
+    a path of engine.step calls) and one a reset outside a step, and one
+    adam_step launch a PPO minibatch step (eager, or replayed from the
+    update's graph)."""
     others = {k: v for k, v in launches.items() if k != variant and v}
     plain_calls = 0 if counted is None else counted.plain_calls
     if launches[variant] != expected or others or plain_calls:
@@ -505,6 +541,11 @@ def check_launches(what: str, launches: dict, variant: str, expected: int,
             raise AssertionError(f"{what}: {counted.feet} foot_positions launches, expected "
                                  f"2 x {steps} env steps + {counted.resets} resets")
         FOOT_LAUNCHES[what] = counted.feet
+        if counted.adam != counted.minibatch_steps:
+            raise AssertionError(f"{what}: {counted.adam} adam_step launches, expected one a "
+                                 f"minibatch step ({counted.minibatch_steps})")
+        if counted.minibatch_steps:
+            ADAM_LAUNCHES[what] = counted.adam
 
 
 def check_finite(what: str, tensors: dict) -> None:
@@ -864,6 +905,87 @@ def check_foot_positions(env, variant: str, q) -> dict:
     return out
 
 
+def check_adam_step(robot: str) -> dict:
+    """adam_step on the card against the plain optimizer (agents/ppo.py
+    `_adam_plain`, tensor ops on the card) bit for bit at the parameter count
+    of `robot`'s learner (ADAM_POLICIES): mu, nu and every parameter, at each
+    of ADAM_COUNTS step counts, with an unclipped gradient (norm < 2) and the
+    KL guard off, a clipped one with the guard holding, one with the guard
+    firing, and one at lr 1 (so that an update's last bit shows in the
+    parameters); one launch a call. Then its time: a launch replayed from a
+    CUDA graph of TIMED_LAUNCHES launches (ms), an eager call (wrapper_ms),
+    the plain optimizer's eager call (plain_ms), and the bound, 28 bytes a
+    parameter (g, mu, nu and the parameter read; mu, nu and the parameter
+    written) at the HBM rate."""
+    import torch
+
+    from steppingstone_tpu_torch.agents import ppo
+    from steppingstone_tpu_torch.agents.networks import ActorCritic
+    from steppingstone_tpu_torch.physics import step_kernel
+
+    obs_dim, act_dim, critics = ADAM_POLICIES[robot]
+    policy = ActorCritic(obs_dim, act_dim, critics, generator=torch.Generator().manual_seed(0))
+    params, cfg = list(policy.parameters()), ppo.PPOConfig(kl_cutoff=0.12)
+    total = sum(p.numel() for p in params)
+    table, kernel = step_kernel.ADAM_STEP.table(params), step_kernel.ADAM_STEP
+    g = torch.Generator(device="cuda").manual_seed(len(robot))
+    scalar = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device="cuda")
+    cases = {"unclipped": (1e-3, 0.0, None, 3e-4), "clipped, guard holds": (1.0, 0.05, 0.12, 3e-4),
+             "guard fires": (1.0, 0.5, 0.12, 3e-4), "lr 1": (1e-3, 0.0, None, 1.0)}
+    checked = []
+    with torch.no_grad():
+        start = [p.detach().clone() for p in params]
+        for count in ADAM_COUNTS:
+            for name, (scale, kl, cutoff, lr) in cases.items():
+                grad = scale * torch.randn(total, generator=g, device="cuda")
+                mu = scale * torch.randn(total, generator=g, device="cuda")
+                nu = scale ** 2 * torch.rand(total, generator=g, device="cuda")
+                gnorm = torch.sqrt(torch.sum(grad * grad))
+                args = (scalar(kl), scalar(lr))
+                plain = ppo.AdamState(scalar(count, torch.int32), mu.clone(), nu.clone())
+                plain_params = [p.clone() for p in start]
+                ppo._adam_plain(plain_params, plain, cfg, grad, gnorm, *args, cutoff)
+                mine = ppo.AdamState(scalar(count, torch.int32), mu.clone(), nu.clone())
+                for p, s0 in zip(params, start):
+                    p.copy_(s0)
+                before = kernel.launches
+                kernel.launch(table, grad, mine.mu, mine.nu, mine.count, gnorm, *args,
+                              cfg.max_grad_norm, ppo.ADAM_B1, ppo.ADAM_B2, cfg.eps, cutoff)
+                if kernel.launches != before + 1:
+                    raise AssertionError(f"adam_step: {kernel.launches - before} launches")
+                same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+                differ = [f for f, a, b in (("mu", mine.mu, plain.mu), ("nu", mine.nu, plain.nu))
+                          if not same(a, b)]
+                differ += [n for (n, _), a, b in zip(policy.named_parameters(), params,
+                                                     plain_params) if not same(a, b)]
+                if differ:
+                    raise AssertionError(f"adam_step, {robot}, count {count}, {name}: "
+                                         f"{differ} differ from the plain optimizer")
+                fired = cutoff is not None and kl > cutoff
+                if fired != all(torch.equal(p, s0) for p, s0 in zip(params, start)):
+                    raise AssertionError(f"adam_step, {robot}, {name}: the guard misread")
+                checked.append(f"count {count}, {name}")
+        launch = lambda: kernel.launch(table, grad, mine.mu, mine.nu, mine.count, gnorm, *args,
+                                       cfg.max_grad_norm, ppo.ADAM_B1, ppo.ADAM_B2, cfg.eps,
+                                       cutoff)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(TIMED_LAUNCHES):
+                launch()
+        plain_opt = ppo.AdamState(mine.count, mine.mu.clone(), mine.nu.clone())
+        out = dict(robot=robot, parameters=total, checked=len(checked),
+                   ms=cuda_ms(graph.replay, 5) / TIMED_LAUNCHES,
+                   wrapper_ms=cuda_ms(launch, TIMED_LAUNCHES),
+                   plain_ms=cuda_ms(lambda: ppo._adam_plain(plain_params, plain_opt, cfg, grad,
+                                                            gnorm, *args, cutoff), 10),
+                   bound_ms=1e3 * 28 * total / PEAK_BYTES_PER_S, bound_by="bytes",
+                   bytes=28 * total)
+        for p, s0 in zip(params, start):
+            p.copy_(s0)
+    print("adam_step:", json.dumps(out), flush=True)
+    return out
+
+
 def rollout_path(env, variant: str, steps: int, detail: bool) -> dict:
     """A rollout as a user drives it (make_env, VecEnv, ActorCritic,
     collect_rollout) at NUM_ENVS, with the variant's launches counted;
@@ -970,7 +1092,7 @@ def cassie_training_path() -> dict:
     """The round-5 Cassie configuration through one training iteration,
     driven in its two halves (Trainer.rollout, then Trainer.update: what
     Trainer.train_iteration runs) and timed in each: 4096 envs x 100 steps,
-    every step one K2+K3 launch; then profiles of both halves."""
+    every step one K2+K3 launch."""
     import torch
 
     from steppingstone_tpu_torch.agents.ppo import init_optimizer
@@ -1015,11 +1137,6 @@ def cassie_training_path() -> dict:
                hits=int(aux["hits"]), dones=int(aux["ep_done"].sum()),
                mean_reward=float(aux["rewards"].mean()))
     print("K2+K3 path (Cassie training):", json.dumps(out), flush=True)
-    print("K2+K3 path profile (rollout):",
-          json.dumps(profile_rollout(trainer.venv, policy, state, obs)), flush=True)
-    print("K2+K3 path profile (update):",
-          json.dumps(profile_update(trainer.ppo_cfg, trainer.generator, policy, opt_state,
-                                    batch)), flush=True)
     return out
 
 
@@ -2290,6 +2407,7 @@ def main() -> int:
     # K2 on Mike's states, at its round-5 run's fleet and test fleet
     mike = make_env("MikeStepperEnv-v0", plank_class="LargePlank")
     checks["K2"] += [check_variant(mike, "K2", b)[0] for b in (R5_ENVS, R5_TEST_ENVS)]
+    adam = [check_adam_step(robot) for robot in ADAM_POLICIES]
 
     walker_rollout = rollout_path(envs["K1"], "K1", ROLLOUT_STEPS, detail=True)
     card_vs_cpu()
@@ -2407,6 +2525,29 @@ def main() -> int:
         path_batches={f"{f['robot']} {f['batch']}": {k: f[k] for k in ("ms", "wrapper_ms",
                                                                         "bound_ms", "plain_ms")}
                       for f in feet},
+    ))
+    # timed at Walker3D's learner (the bench's update), and at Cassie's
+    kernels.append(dict(
+        name="adam_step",
+        route="cuda",
+        source="steppingstone_tpu_torch/csrc/control_step.cu",
+        replaces="steppingstone_tpu_torch/agents/ppo.py _adam_plain: optax clip_by_global_norm "
+                 "-> scale_by_adam -> params -= lr * update, the KL guard",
+        specialization="any policy, the KL guard on or off",
+        design="thread per parameter",
+        launches=ADAM_LAUNCHES["bench"],
+        other_paths={k: n for k, n in ADAM_LAUNCHES.items() if k != "bench"},
+        max_abs_err=0.0,  # bit for bit, or the check above raises
+        checked_batches=[f"{a['robot']} {a['parameters']} ({a['checked']} cases)" for a in adam],
+        ms=adam[0]["ms"],
+        plain_ms=adam[0]["plain_ms"],
+        bound_ms=adam[0]["bound_ms"],
+        bound_by=adam[0]["bound_by"],
+        batch=adam[0]["parameters"],
+        wrapper_ms=adam[0]["wrapper_ms"],
+        bytes=adam[0]["bytes"],
+        path_batches={f"{a['robot']} {a['parameters']}": {k: a[k] for k in (
+            "ms", "wrapper_ms", "bound_ms", "plain_ms")} for a in adam},
     ))
     print(f"wall: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,14 @@ minibatch step, of this update and the next ones; the graph is kept per
 policy and captured anew when the batch's shapes, the config, value_only
 or the parameters' storage change. On the CPU and over several ranks the
 same step runs eagerly. The arithmetic is the same on every path.
+
+With the mirror, the batch's mirror image is made once an update, beside
+the batch (`_StepBuffers.load`), and each step gathers its rows and the
+same rows of the image: the tensors the losses see are those of mirroring
+each minibatch (a mirror is a permutation and signs, exact). The optimizer
+is one launch of the hand-written `adam_step` kernel on a card
+(physics/step_kernel.py `ADAM_STEP`, bit for bit the plain version) and the
+plain tensor ops (`_adam_plain`) on the CPU.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from steppingstone_tpu_torch.agents.mirror import MirrorSpec, mirror_minibatch
 from steppingstone_tpu_torch.agents.networks import (
     ActorCritic, clamped_logstd, params_from_jax, project_logstd)
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh, all_reduce_sum
+from steppingstone_tpu_torch.physics.step_kernel import ADAM_STEP, AdamTable
 from steppingstone_tpu_torch.tracing import span
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -143,16 +152,44 @@ def _losses(policy: ActorCritic, cfg: PPOConfig, mb: dict, m_global: int):
     return action_loss, value_loss, entropy, clip_frac, approx_kl
 
 
+def _adam_plain(params: list, opt: AdamState, cfg: PPOConfig, g: torch.Tensor,
+                gnorm: torch.Tensor, approx_kl: torch.Tensor, lr: torch.Tensor,
+                kl_cutoff: float | None) -> None:
+    """The optimizer in tensor ops (what `adam_step` computes on the card):
+    optax's clip_by_global_norm -> scale_by_adam -> params -= lr * update
+    with the KL guard (`kl_cutoff`, None: off); `opt.count` already counts
+    this step. Writes mu, nu and the parameters in place."""
+    # optax.clip_by_global_norm
+    g = torch.where(gnorm < cfg.max_grad_norm, g, (g / gnorm) * cfg.max_grad_norm)
+    # optax.scale_by_adam
+    mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
+    nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu
+    c = opt.count.to(torch.float32)
+    update = (mu / (1 - ADAM_B1 ** c)) / (torch.sqrt(nu / (1 - ADAM_B2 ** c)) + cfg.eps)
+    step_lr = lr
+    if kl_cutoff is not None:
+        # trust guard: a minibatch that drifted too far applies no update
+        step_lr = torch.where(approx_kl > kl_cutoff, torch.zeros_like(lr), lr)
+    with torch.no_grad():
+        flat = torch.cat([p.reshape(-1) for p in params]) - step_lr * update
+        for p, x in zip(params, flat.split([p.numel() for p in params])):
+            p.copy_(x.view_as(p))
+    opt.mu.copy_(mu)
+    opt.nu.copy_(nu)
+
+
 def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOConfig,
-                    mb: dict, lr: torch.Tensor, value_only: bool, mesh: Mesh, m_global: int):
+                    mb: dict, lr: torch.Tensor, value_only: bool, mesh: Mesh, m_global: int,
+                    table: AdamTable | None) -> PPOMetrics:
     """One optimizer step on one minibatch of `m_global` rows, `mb` this
-    rank's; updates `policy` in place and returns (new AdamState,
-    PPOMetrics of this step). Over several ranks one all-reduce sums the
-    flat gradient and the loss terms, so every rank clips, guards and
-    steps on the global values and stays identical."""
+    rank's (its mirrored rows already after its own with `cfg.mirror`);
+    updates `policy` and Adam's state `opt` in place and returns the
+    PPOMetrics of this step. Over several ranks one all-reduce sums the flat
+    gradient and the loss terms, so every rank clips, guards and steps on
+    the global values and stays identical. CPU tensors run the plain
+    optimizer, CUDA tensors the `adam_step` kernel through `table` (the
+    parameters' `ADAM_STEP.table`)."""
     with span("ppo.forward"):
-        if cfg.mirror is not None:
-            mb = mirror_minibatch(cfg.mirror, mb)
         action_loss, value_loss, entropy, clip_frac, approx_kl = _losses(policy, cfg, mb,
                                                                          m_global)
         total = value_loss * cfg.value_loss_coef
@@ -174,25 +211,17 @@ def _minibatch_step(policy: ActorCritic, params: list, opt: AdamState, cfg: PPOC
         value_loss, action_loss, clip_frac, approx_kl = summed[-4:]
     with span("ppo.optimizer"):
         gnorm = torch.sqrt(torch.sum(g * g))
-        # optax.clip_by_global_norm
-        g = torch.where(gnorm < cfg.max_grad_norm, g, (g / gnorm) * cfg.max_grad_norm)
-        # optax.scale_by_adam
-        mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
-        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu
-        count = opt.count + 1
-        c = count.to(torch.float32)
-        update = (mu / (1 - ADAM_B1 ** c)) / (torch.sqrt(nu / (1 - ADAM_B2 ** c)) + cfg.eps)
-        step_lr = lr
-        if cfg.kl_cutoff > 0.0 and not value_only:
-            # trust guard: a minibatch that drifted too far applies no update
-            step_lr = torch.where(approx_kl > cfg.kl_cutoff, torch.zeros_like(lr), lr)
-        with torch.no_grad():
-            flat = torch.cat([p.reshape(-1) for p in params]) - step_lr * update
-            for p, x in zip(params, flat.split([p.numel() for p in params])):
-                p.copy_(x.view_as(p))
+        opt.count.add_(1)
+        kl_cutoff = cfg.kl_cutoff if cfg.kl_cutoff > 0.0 and not value_only else None
+        if g.device.type == "cpu":
+            _adam_plain(params, opt, cfg, g, gnorm, approx_kl, lr, kl_cutoff)
+        elif g.device.type == "cuda":
+            ADAM_STEP.launch(table, g, opt.mu, opt.nu, opt.count, gnorm, approx_kl, lr,
+                             cfg.max_grad_norm, ADAM_B1, ADAM_B2, cfg.eps, kl_cutoff)
+        else:
+            raise ValueError(f"unsupported device {g.device}")
         project_logstd(policy)
-    metrics = PPOMetrics(value_loss, action_loss, entropy.detach(), gnorm, clip_frac, approx_kl)
-    return AdamState(count, mu, nu), metrics
+    return PPOMetrics(value_loss, action_loss, entropy.detach(), gnorm, clip_frac, approx_kl)
 
 
 def local_minibatches(mesh: Mesh, rows: torch.Tensor, num_mini_batch: int,
@@ -223,9 +252,12 @@ def _captures(device: torch.device, mesh: Mesh) -> bool:
 
 class _StepBuffers:
     """What one minibatch step reads and writes, in tensors that live as long
-    as the step does (and a graph captured from it): the batch, the
-    update's row order (steps, mbs), the lr, Adam's count, mu and nu, the
-    step index and a (steps, 6) history of each step's PPOMetrics. `load`
+    as the step does (and a graph captured from it): the batch (with
+    `cfg.mirror` followed by its mirror image: obs and actions mirrored, the
+    other fields repeated), the update's row order (steps, mbs; with the
+    mirror each step's rows then the same rows of the image), the lr, Adam's
+    count, mu and nu, the step index and a (steps, 6) history of each step's
+    PPOMetrics; on a card the parameters' table for `adam_step`. `load`
     fills them for an update, `step` runs one minibatch step on them and
     `result` reads the update's outcome."""
 
@@ -236,9 +268,13 @@ class _StepBuffers:
         # the tensors, not the module: a graph cache keyed weakly by the
         # policy must not hold it
         self.params = list(policy.parameters())
+        self.table = ADAM_STEP.table(self.params) if dev.type == "cuda" else None
         n = sum(p.numel() for p in self.params)
-        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in batch.items()}
-        self.perms = torch.empty((steps, mbs), dtype=torch.long, device=dev)
+        self.rows = batch["obs"].shape[0]
+        fold = 1 if cfg.mirror is None else 2
+        self.batch = {k: torch.empty((fold * v.shape[0], *v.shape[1:]), dtype=v.dtype, device=dev)
+                      for k, v in batch.items()}
+        self.perms = torch.empty((steps, fold * mbs), dtype=torch.long, device=dev)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.mu = torch.zeros(n, device=dev)
@@ -247,12 +283,18 @@ class _StepBuffers:
         self.history = torch.zeros((steps, len(PPOMetrics._fields)), device=dev)
 
     def load(self, batch: dict, perms: torch.Tensor | None, opt_state: AdamState, lr) -> None:
-        """Copies an update's inputs in (`perms` None: the rows are given to
-        each step); none of these synchronizes with the host."""
+        """Copies an update's inputs in, with the mirror the batch's mirror
+        image too (`perms` None: the rows are given to each step); none of
+        these synchronizes with the host."""
+        if self.cfg.mirror is not None:
+            batch = mirror_minibatch(self.cfg.mirror, batch)
         for k, v in batch.items():
             self.batch[k].copy_(v)
         if perms is not None:
-            self.perms.copy_(perms.reshape(self.perms.shape))
+            perms = perms.reshape(self.perms.shape[0], -1)
+            if self.cfg.mirror is not None:
+                perms = torch.cat([perms, perms + self.rows], dim=1)
+            self.perms.copy_(perms)
         self.lr.fill_(lr)
         self.count.copy_(opt_state.count)
         self.mu.copy_(opt_state.mu)
@@ -260,17 +302,18 @@ class _StepBuffers:
         self.index.zero_()
 
     def step(self, policy: ActorCritic, rows: torch.Tensor | None = None) -> None:
-        """One minibatch step on rows `rows` of the batch, by default the row
-        order's row at the step index; Adam's state, the parameters and the
-        history row are written in place and the index advances."""
+        """One minibatch step on rows `rows` of the batch (with the mirror,
+        and the same rows of its image), by default the row order's row at
+        the step index; Adam's state, the parameters and the history row
+        are written in place and the index advances."""
         if rows is None:
             rows = self.perms.index_select(0, self.index).view(-1)
+        elif self.cfg.mirror is not None:
+            rows = torch.cat([rows, rows + self.rows])
         mb = {k: v[rows] for k, v in self.batch.items()}
-        opt, m = _minibatch_step(policy, self.params, AdamState(self.count, self.mu, self.nu),
-                                 self.cfg, mb, self.lr, self.value_only, self.mesh, self.mbs)
-        self.count.copy_(opt.count)
-        self.mu.copy_(opt.mu)
-        self.nu.copy_(opt.nu)
+        m = _minibatch_step(policy, self.params, AdamState(self.count, self.mu, self.nu),
+                            self.cfg, mb, self.lr, self.value_only, self.mesh, self.mbs,
+                            self.table)
         self.history.index_copy_(0, self.index, torch.stack(m).view(1, -1))
         self.index.add_(1)
 
@@ -290,10 +333,13 @@ class _GraphedStep:
     """One minibatch step captured as a CUDA graph over `_StepBuffers`: the
     first GRAPH_WARMUP_STEPS calls run the step eagerly on a side stream, the
     next captures it and replays it, every later call replays it. Each call
-    is one real step of the update."""
+    is one real step of the update. `ADAM_STEP.launches` counts what ran: an
+    eager step its launch, a capture none, a replay the launches its graph
+    holds."""
 
     def __init__(self, key: tuple, buffers: _StepBuffers):
         self.key, self.buffers, self.graph, self.warm = key, buffers, None, 0
+        self.adam_launched = 0
         self.side = torch.cuda.Stream(buffers.lr.device)
 
     def __call__(self, policy: ActorCritic) -> None:
@@ -306,13 +352,17 @@ class _GraphedStep:
             self.warm += 1
             return
         if self.graph is None:
+            before = ADAM_STEP.launches
             graph = torch.cuda.CUDAGraph()
             with span("ppo.graph.capture"), torch.cuda.graph(graph):
                 self.buffers.step(policy)
+            self.adam_launched = ADAM_STEP.launches - before
+            ADAM_STEP.launches = before  # the capture ran nothing
             self.graph = graph
             tracing.count("ppo.graph.captures")
         with span("ppo.minibatch"):
             self.graph.replay()
+        ADAM_STEP.launches += self.adam_launched
         tracing.count("ppo.graph.replays")
 
 

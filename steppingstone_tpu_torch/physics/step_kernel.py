@@ -29,6 +29,11 @@ The same library holds `foot_positions`, the world origins of a few bodies
 ancestors. Its entry `foot_positions` runs the plain forward kinematics
 on CPU tensors and the kernel on CUDA tensors; `FOOT_POSITIONS.launches`
 counts its launches.
+
+It also holds `adam_step`, the PPO minibatch step's clip, Adam, KL gate and
+parameter step in one pass over the flat parameters (agents/ppo.py calls it
+on CUDA tensors and runs the plain optimizer on CPU tensors);
+`ADAM_STEP.launches` counts its launches.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -286,6 +292,12 @@ class ControlStepKernel:
                 lib.foot_positions_launch.argtypes = (
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_int] + [ctypes.c_void_p] * 3)
+            if hasattr(lib, "adam_step_launch"):
+                lib.adam_step_launch.restype = ctypes.c_int
+                lib.adam_step_launch.argtypes = (
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 6
+                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             self._lib = lib
         return time.perf_counter() - t0
 
@@ -457,6 +469,85 @@ def foot_positions(model: RobotModel, q: torch.Tensor, bodies: tuple) -> torch.T
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return FOOT_POSITIONS.launch(model, q.contiguous(), tuple(bodies))
+
+
+def adam_constants(max_norm: float, b1: float, b2: float, eps: float,
+                   kl_cutoff: float | None) -> tuple:
+    """`adam_step`'s scalar arguments after the device pointers: max_norm, b1,
+    b2, 1 - b1, 1 - b2 and eps rounded to float32 as PyTorch rounds a Python
+    float operand, the gate (1 with a `kl_cutoff`) and the cutoff."""
+    f32 = lambda x: float(np.float32(x))
+    return (f32(max_norm), f32(b1), f32(b2), f32(1 - b1), f32(1 - b2), f32(eps),
+            int(kl_cutoff is not None), f32(kl_cutoff or 0.0))
+
+
+class AdamTable(NamedTuple):
+    """`adam_step`'s table of parameters: `entries` (2 nparams,) int64 on the
+    device, their pointers then their ends in the flat order."""
+
+    entries: torch.Tensor
+    nparams: int
+    total: int
+
+
+class AdamStepKernel:
+    """Launches `adam_step` from the control-step kernels' library
+    (`kernels`): the PPO step's clip, Adam, KL gate and parameter step in
+    one pass (agents/ppo.py holds the plain version, which CPU tensors run);
+    `launches` counts its launches."""
+
+    def __init__(self, kernels: ControlStepKernel):
+        self.kernels = kernels
+        self.launches = 0
+        self._tables: dict = {}
+
+    def table(self, params: list) -> AdamTable:
+        """The device table of `params` (contiguous float32 CUDA tensors of one
+        device) that the kernel writes through: their pointers, then their
+        ends in the flat order, int64; made once for each set of pointers and
+        sizes."""
+        if not all(p.is_cuda and p.dtype == torch.float32 and p.is_contiguous() for p in params):
+            raise ValueError("adam_step writes contiguous float32 CUDA parameters only")
+        key = (params[0].device, tuple((p.data_ptr(), p.numel()) for p in params))
+        got = self._tables.get(key)
+        if got is None:
+            ends = np.cumsum([p.numel() for p in params])
+            entries = np.concatenate([[p.data_ptr() for p in params], ends]).astype(np.int64)
+            got = self._tables[key] = AdamTable(
+                torch.as_tensor(entries, device=params[0].device), len(params), int(ends[-1]))
+        return got
+
+    def launch(self, table: AdamTable, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+               count: torch.Tensor, gnorm: torch.Tensor, approx_kl: torch.Tensor,
+               lr: torch.Tensor, max_norm: float, b1: float, b2: float, eps: float,
+               kl_cutoff: float | None) -> None:
+        """One optimizer step on the current stream (a graph being captured
+        takes it in): mu, nu and the parameters of `table` written in place
+        from the flat gradient g (P,) and the device scalars gnorm, approx_kl
+        (read only with a `kl_cutoff`), lr and count (int32, this step's,
+        already advanced). Each Python float is rounded to float32 as
+        PyTorch rounds a scalar operand."""
+        for name, x in (("g", g), ("mu", mu), ("nu", nu)):
+            if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() != table.total:
+                raise ValueError(f"adam_step: {name} must be contiguous float32 of {table.total}")
+        scalars = ((gnorm, torch.float32), (approx_kl, torch.float32), (lr, torch.float32),
+                   (count, torch.int32))
+        if any(x.dtype != dt or x.numel() != 1 for x, dt in scalars):
+            raise ValueError("adam_step: gnorm, approx_kl and lr are float32 scalars, count int32")
+        self.kernels.build()
+        with torch.cuda.device(g.device):
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            err = self.kernels._lib.adam_step_launch(
+                g.data_ptr(), mu.data_ptr(), nu.data_ptr(), table.entries.data_ptr(),
+                table.nparams, table.total, gnorm.data_ptr(), approx_kl.data_ptr(),
+                lr.data_ptr(), count.data_ptr(),
+                *adam_constants(max_norm, b1, b2, eps, kl_cutoff), stream)
+        if err != 0:
+            raise RuntimeError(f"adam_step kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+ADAM_STEP = AdamStepKernel(CONTROL_STEP)
 
 
 def _check_inputs(model: RobotModel, q, qd, tau, stones, stone_radius, use_ground,

@@ -25,7 +25,9 @@ JSON line per setting:
   launches, physics/step_kernel.py: 2.0 on the card, 0 on the CPU) per
   control step, ppo_step_host_ms, syncs_per_ppo_step and
   graph_replays_per_ppo_step (the replays of the captured minibatch step,
-  agents/ppo.py: 1.0 on the card once captured, 0 on the CPU) per
+  agents/ppo.py: 1.0 on the card once captured, 0 on the CPU) and
+  adam_launches_per_ppo_step (the `adam_step` kernel's launches,
+  physics/step_kernel.py: 1.0 on the card, 0 on the CPU) per
   minibatch step, reset_share (env.reset over env.step). On the card
   slice 2's update replays the captured step: `ppo.minibatch` spans one
   replay and has no child; `ppo.forward`, `ppo.backward` and
@@ -70,7 +72,7 @@ from steppingstone_tpu_torch.device import resolve_device
 from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.envs import terrain as terr
 from steppingstone_tpu_torch.envs.vector import VecEnv
-from steppingstone_tpu_torch.physics.step_kernel import FOOT_POSITIONS
+from steppingstone_tpu_torch.physics.step_kernel import ADAM_STEP, FOOT_POSITIONS
 from steppingstone_tpu_torch.runtime import behavior_eval
 from steppingstone_tpu_torch.runtime.config import TrainConfig
 from steppingstone_tpu_torch.runtime.train import IterationDraws, Trainer
@@ -281,13 +283,13 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
     iteration(draws(), slice1)
     d = draws()
     slice2.sync()
-    feet = FOOT_POSITIONS.launches
+    feet, adam = FOOT_POSITIONS.launches, ADAM_STEP.launches
     RECORDER.start()
     try:
         iteration(d, slice2)
     finally:
         spans, counters = RECORDER.stop()
-    feet_launches = FOOT_POSITIONS.launches - feet
+    feet_launches, adam_launches = FOOT_POSITIONS.launches - feet, ADAM_STEP.launches - adam
     plain = abba(lambda sessions: iteration(draws(), sessions), dev)
     minibatches = cfg.ppo_epoch * cfg.num_mini_batch
     out = analyse(spans, counters, slice2, {"trainer.rollout/rollout.step": T,
@@ -304,6 +306,7 @@ def train_probe(name: str, dev: torch.device, **sizes) -> dict:
         foot_launches_per_env_step=feet_launches / T,
         syncs_per_ppo_step=host[mb]["syncs"],
         graph_replays_per_ppo_step=counters.get("ppo.graph.replays", 0) / minibatches,
+        adam_launches_per_ppo_step=adam_launches / minibatches,
         reset_share=_share(host, f"{step}/env.step/env.reset", f"{step}/env.step"))
     return _finish(name, out, slice1, slice2, plain,
                    dict(control_steps=T, minibatch_steps=minibatches, envs=N))

@@ -3,19 +3,23 @@
 
 On the CPU, at Walker3D's and Cassie's widths (one critic and two, mirror
 on, the KL guard firing on the first minibatch, full and value-only): the
-step over buffers, run eagerly through a whole `ppo_update`, gives bit for
-bit the parameters, Adam state and metrics of the loop it replaced (kept
-below as `previous_update`); the returned AdamState shares no storage with
-the step's buffers; the CPU and the sharded paths never capture; the
-graph's key changes with each thing a capture depends on; the mirror's
-constants are made once.
+step over buffers, run eagerly through a whole `ppo_update` (the mirror
+image made once an update beside the batch), gives bit for bit the
+parameters, Adam state and metrics of the loop it replaced (kept below as
+`previous_update`: each minibatch mirrored, the optimizer in tensor ops);
+so does the step on rows given to it (the sharded path's); the returned
+AdamState shares no storage with the step's buffers; the CPU and the
+sharded paths never capture; the graph's key changes with each thing a
+capture depends on; the mirror's constants are made once.
 
 Card-marked (skipped without a card; on the card:
 `python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_ppo_graph.py -m card`):
 over two updates of 1,024 envs x 100 steps with mirror, the graph path's
-parameters, Adam state and metrics equal the eager path's bit for bit; one
-capture and a replay for every minibatch step after the warm-up; no host
-sync in a second update; new parameter storage captures again.
+parameters, Adam state and metrics equal the eager path's, and the
+previous loop's (the plain optimizer's), bit for bit, for Walker3D and
+Cassie; one capture and a replay for every minibatch step after the
+warm-up, one `adam_step` launch a step and one in the graph; no host sync
+in a second update; new parameter storage captures again.
 """
 
 import copy
@@ -32,6 +36,7 @@ from steppingstone_tpu_torch.agents.mirror import MirrorSpec
 from steppingstone_tpu_torch.agents.networks import ActorCritic, clamped_logstd, project_logstd
 from steppingstone_tpu_torch.envs import make_env
 from steppingstone_tpu_torch.parallel.mesh import SINGLE, Mesh
+from steppingstone_tpu_torch.physics import step_kernel
 from steppingstone_tpu_torch.tracing import RECORDER
 
 MODELS = {"walker3d": ("Walker3DStepperEnv-v0", 1), "cassie": ("CassieStepper-v1", 2)}
@@ -179,13 +184,20 @@ def _assert_same(a, b):
 
 @pytest.mark.parametrize("value_only", [False, True], ids=["full", "value_only"])
 @pytest.mark.parametrize("model", sorted(MODELS))
-def test_static_step_equals_the_previous_loop(model, value_only):
+def test_static_step_equals_the_previous_loop(model, value_only, monkeypatch):
+    """The update over the folded batch (the mirror image made once an
+    update, each step gathering its rows of both) equals the loop that
+    mirrored every minibatch, bit for bit."""
     policy, opt, cfg, batch, perms = _second_update_start(model, "cpu")
     other = copy.deepcopy(policy)
     before = [p.detach().clone() for p in policy.parameters()]
     o_prev, m_prev = previous_update(policy, opt, cfg, batch, LR, value_only, perms)
+    mirrored = []
+    monkeypatch.setattr(ppo, "mirror_minibatch", lambda spec, b: mirrored.append(
+        b["obs"].shape) or tmirror.mirror_minibatch(spec, b))
     o_new, m_new = ppo.ppo_update(other, opt, cfg, batch, LR, value_only=value_only,
                                   perms=perms)
+    assert mirrored == [batch["obs"].shape]  # the whole batch, once an update
     _assert_same((policy, o_prev, m_prev), (other, o_new, m_new))
     assert int(o_new.count) == 2 * cfg.ppo_epoch * cfg.num_mini_batch
     assert all(not torch.equal(a, b) for a, b in zip(before, other.parameters()))
@@ -193,6 +205,25 @@ def test_static_step_equals_the_previous_loop(model, value_only):
         # the first minibatch's drift lifts the mean past cutoff / steps
         steps = cfg.ppo_epoch * cfg.num_mini_batch
         assert float(m_new.approx_kl) > cfg.kl_cutoff / steps
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_given_rows_fold_the_mirror_as_the_row_order(model):
+    """The step on rows given to it (the sharded path's: each rank's local
+    rows of a minibatch) gathers those rows and the same rows of the batch's
+    mirror image: bit for bit the step that reads the row order."""
+    policy, opt, cfg, batch, perms = _second_update_start(model, "cpu")
+    other = copy.deepcopy(policy)
+    steps, mbs = cfg.ppo_epoch * cfg.num_mini_batch, batch["obs"].shape[0] // cfg.num_mini_batch
+    ordered = ppo._StepBuffers(policy, cfg, batch, False, steps, mbs, SINGLE)
+    given = ppo._StepBuffers(other, cfg, batch, False, steps, mbs, SINGLE)
+    ordered.load(batch, perms, opt, LR)
+    given.load(batch, None, opt, LR)
+    assert given.batch["obs"].shape[0] == 2 * batch["obs"].shape[0]
+    for rows in perms.reshape(steps, mbs):
+        ordered.step(policy)
+        given.step(other, rows)
+    _assert_same((policy, *ordered.result()), (other, *given.result()))
 
 
 def test_returned_adam_state_shares_no_storage():
@@ -327,11 +358,33 @@ def test_graph_update_equals_eager_on_the_card(card, model):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_kernel_update_equals_the_plain_optimizer_on_the_card(card, model):
+    """Two updates of 1,024 envs x 100 steps in 1,024-row minibatches, 10
+    epochs, mirror on, the KL guard firing: the captured step with the
+    folded mirror and `adam_step` gives bit for bit the parameters, Adam
+    state and metrics of the previous loop on the card (each minibatch
+    mirrored, the optimizer in tensor ops)."""
+    dev = torch.device("cuda")
+    policy, cfg, batch, perms = _case(model, dev, rows=102_400, epochs=10, minibatches=100)
+    graphed, opt_g = copy.deepcopy(policy), ppo.init_optimizer(policy)
+    opt_p = ppo.init_optimizer(policy)
+    for i in range(2):
+        p = perms.roll(i, dims=1)
+        opt_p, m_p = previous_update(policy, opt_p, cfg, batch, LR, False, p)
+        opt_g, m_g = ppo.ppo_update(graphed, opt_g, cfg, batch, LR, perms=p)
+        torch.cuda.synchronize()
+        _assert_same((policy, opt_p, m_p), (graphed, opt_g, m_g))
+    assert ppo._GRAPHS[graphed][False].adam_launched == 1
+
+
+@pytest.mark.card
 def test_one_capture_and_a_replay_a_step_on_the_card(card):
     dev = torch.device("cuda")
     policy, cfg, batch, perms = _case("walker3d", dev, rows=8192, epochs=2, minibatches=8)
     steps = cfg.ppo_epoch * cfg.num_mini_batch
     opt = ppo.init_optimizer(policy)
+    adam_before = step_kernel.ADAM_STEP.launches
     RECORDER.start()
     try:
         for _ in range(2):
@@ -341,6 +394,9 @@ def test_one_capture_and_a_replay_a_step_on_the_card(card):
         spans, counters = RECORDER.stop()
     assert counters["ppo.graph.captures"] == 1
     assert counters["ppo.graph.replays"] == 2 * steps - ppo.GRAPH_WARMUP_STEPS
+    # adam_step: one launch a step, warm-up and replays alike; the graph holds one
+    assert step_kernel.ADAM_STEP.launches - adam_before == 2 * steps
+    assert ppo._GRAPHS[policy][False].adam_launched == 1
     names = [s.name for s in spans]
     assert names.count("ppo.minibatch") == 2 * steps
     assert names.count("ppo.graph.capture") == 1

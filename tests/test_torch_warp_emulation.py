@@ -27,7 +27,9 @@ the kernel's lane mapping, indexing, tables, synchronisation, PD terms,
 plank bound and rotated frames; its speed and the CUDA compiler's view of
 it only the card shows (tests/test_torch_structure.py, chip_smoke.py).
 The same build emulates foot_positions, the feet's world origins, against
-the plain forward kinematics on Walker3D, Cassie and rotated Walker3D."""
+the plain forward kinematics on Walker3D, Cassie and rotated Walker3D, and
+adam_step, the PPO step's optimizer, bit for bit against the plain
+optimizer (agents/ppo.py `_adam_plain`)."""
 
 import ctypes
 import dataclasses
@@ -49,6 +51,7 @@ from steppingstone_tpu.physics import dynamics as jdyn
 from steppingstone_tpu.physics import engine as jeng
 from steppingstone_tpu.physics import pallas_step
 from steppingstone_tpu.physics.model import build_model as jbuild
+from steppingstone_tpu_torch.agents import ppo
 from steppingstone_tpu_torch.envs.stepper import _foot_bodies
 from steppingstone_tpu_torch.physics import engine, kinematics, step_kernel
 from steppingstone_tpu_torch.physics.contact import ContactParams
@@ -122,15 +125,34 @@ extern "C" int emulate_feet(const ModelData* m, const int* chains, int nchains,
       if (!warp_emulation::run_warp(body, b, w, FOOT_THREADS, false)) return -2;
   return blocks;
 }
+
+// adam_step over `total` elements as adam_step_launch grids it: block after
+// block of ADAM_THREADS threads, warp after warp; returns the blocks, or -2
+// if a warp's lanes diverge at a meeting point
+extern "C" int emulate_adam(const float* g, float* mu, float* nu, const long long* table,
+                            int nparams, long long total, const float* gnorm,
+                            const float* approx_kl, const float* lr, const int* count,
+                            float max_norm, float b1, float b2, float one_minus_b1,
+                            float one_minus_b2, float eps, int gate, float kl_cutoff) {
+  const int blocks = (int)((total + ADAM_THREADS - 1) / ADAM_THREADS);
+  const std::function<void()> body = [&] {
+    adam_step(g, mu, nu, table, nparams, total, gnorm, approx_kl, lr, count, max_norm, b1, b2,
+              one_minus_b1, one_minus_b2, eps, gate, kl_cutoff);
+  };
+  for (int b = 0; b < blocks; ++b)
+    for (int w = 0; w < ADAM_THREADS / 32; ++w)
+      if (!warp_emulation::run_warp(body, b, w, ADAM_THREADS, false)) return -2;
+  return blocks;
+}
 """
 # the host-launch code starts here (<<< >>>); the kernels and helpers before it
 CUT = "template <bool PD, bool PLANK, bool ROT>\nstatic cudaError_t warp_prepare("
 
 
 def _build(tmp, src):
-    """The kernels' part of `src` (control_step_warp and foot_positions)
-    compiled against warp_emulation.h into `tmp` -> the library, with its
-    `emulate_warp` and `emulate_feet`."""
+    """The kernels' part of `src` (control_step_warp, foot_positions and
+    adam_step) compiled against warp_emulation.h into `tmp` -> the library,
+    with its `emulate_warp`, `emulate_feet` and `emulate_adam`."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a host C++ compiler is needed"
     part = src[:src.index(CUT)].replace("#include <cuda_runtime.h>", "")
@@ -149,6 +171,10 @@ def _build(tmp, src):
     feet.restype = ctypes.c_int
     feet.argtypes = [ctypes.POINTER(step_kernel._ModelData), ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    adam = built.emulate_adam
+    adam.restype = ctypes.c_int
+    adam.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+                     + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_float])
     return built
 
 
@@ -480,3 +506,77 @@ def test_emulated_foot_kernel_matches_plain_kinematics(emulated_library, name):
     if model.joint_rot is not None:  # the rotations move the feet
         plain = kinematics.forward_kinematics(dataclasses.replace(model, joint_rot=None), q)
         assert (plain.pos[:, list(feet)] - ref)[:5].abs().max() > 1e-2
+
+
+# (gradient scale, a NaN in the gradient, count, KL guard: None off, else
+# (approx_kl, cutoff))
+ADAM_CASES = {"unclipped": (0.01, False, 5, None), "clipped": (40.0, False, 12_345, None),
+              "gate_fires": (40.0, False, 7, (0.5, 0.12)),
+              "gate_holds": (0.01, False, 1, (0.05, 0.12)),
+              "nan_gate_fires": (0.01, True, 3, (0.5, 0.12))}
+
+
+@pytest.mark.parametrize("case", list(ADAM_CASES))
+def test_emulated_adam_kernel_matches_plain_optimizer(emulated_library, case, monkeypatch):
+    """adam_step, emulated over parameters of ragged sizes (556 elements: the
+    last of 3 blocks has idle threads), against the plain optimizer on the
+    same inputs bit for bit: mu, nu and every parameter; an unclipped and a
+    clipped gradient, counts from 1 to 12,345, the KL guard off, holding
+    and firing (the step size 0). A NaN in the gradient makes every norm,
+    moment and parameter NaN, with the guard firing too (0 x NaN)."""
+    scale, nan, count, guard = ADAM_CASES[case]
+    cfg = ppo.PPOConfig()
+    g = torch.Generator().manual_seed(len(case))
+    shapes = [(7, 13), (13,), (50, 3), (1,), (301,)]
+    # parameters of the step's size, so that a step's last bit shows in them
+    params = [1e-4 * torch.randn(s, generator=g) for s in shapes]
+    total = sum(p.numel() for p in params)
+    grad = scale * torch.randn(total, generator=g)
+    if nan:
+        grad[100] = float("nan")
+    mu = 0.1 * torch.randn(total, generator=g)
+    nu = 0.01 * torch.rand(total, generator=g)
+    gnorm = torch.sqrt(torch.sum(grad * grad))
+    assert bool(gnorm < cfg.max_grad_norm) == (scale < 1.0) or nan
+    kl = torch.tensor(0.0 if guard is None else guard[0])
+    lr = torch.tensor(3e-4)
+    counter = torch.tensor(count, dtype=torch.int32)
+    cutoff = None if guard is None else guard[1]
+
+    before = [p.clone() for p in params]
+    plain_before = ppo.AdamState(counter.clone(), mu.clone(), nu.clone())
+    plain = ppo.AdamState(counter.clone(), mu.clone(), nu.clone())
+    plain_params = [p.clone() for p in params]
+    # PyTorch's CPU sqrt (MKL's) may miss the correctly rounded root by an
+    # ulp; its CUDA sqrt, which the kernel's __fsqrt_rn meets, does not: the
+    # plain optimizer here takes the correctly rounded root (numpy's)
+    ieee_sqrt = lambda x: torch.from_numpy(np.sqrt(x.numpy()))
+    monkeypatch.setattr(torch, "sqrt", ieee_sqrt)
+    ppo._adam_plain(plain_params, plain, cfg, grad, gnorm, kl, lr, cutoff)
+    monkeypatch.undo()
+
+    ends = np.cumsum([p.numel() for p in params])
+    table = torch.as_tensor(np.concatenate([[p.data_ptr() for p in params], ends]),
+                            dtype=torch.int64)
+    blocks = emulated_library.emulate_adam(
+        grad.data_ptr(), mu.data_ptr(), nu.data_ptr(), table.data_ptr(), len(params), total,
+        gnorm.data_ptr(), kl.data_ptr(), lr.data_ptr(), counter.data_ptr(),
+        *step_kernel.adam_constants(cfg.max_grad_norm, ppo.ADAM_B1, ppo.ADAM_B2, cfg.eps,
+                                    cutoff))
+    assert blocks == 3  # 556 threads, 256 a block
+
+    def same(a, b):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+    same(mu, plain.mu)
+    same(nu, plain.nu)
+    for p, q in zip(params, plain_params):
+        same(p, q)
+    if nan:
+        assert all(x.isnan().all() for x in (mu, nu, *params))
+    elif guard is not None and guard[0] > guard[1]:  # no step, the moments advance
+        assert all(torch.equal(p, b) for p, b in zip(params, before))
+        assert not torch.equal(mu, plain_before.mu)
+    else:
+        assert all(not torch.equal(p, b) for p, b in zip(params, before))

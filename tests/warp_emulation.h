@@ -1,5 +1,6 @@
-// The CUDA features that control_step_warp (csrc/control_step.cu) uses,
-// emulated on the host for tests/test_torch_warp_emulation.py: a lane is a
+// The CUDA features that control_step_warp, foot_positions and adam_step
+// (csrc/control_step.cu) use, emulated on the host for
+// tests/test_torch_warp_emulation.py: a lane is a
 // fiber (ucontext) on the calling thread, and a warp's 32 lanes run in turn,
 // each until it reaches the warp's next meeting point (__syncwarp, or one of
 // the three inside a shuffle), in ascending or descending lane order; shared
@@ -7,6 +8,7 @@
 // what the kernel's part of the source needs is here.
 #pragma once
 #include <math.h>
+#include <stdint.h>
 #include <ucontext.h>
 
 #include <algorithm>
@@ -36,6 +38,12 @@ inline T __ldg(const T* p) {
   return *p;
 }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+// IEEE single operations rounded once (the host's float arithmetic, no FMA)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return sqrtf(a); }
 using std::max;
 using std::min;
 
